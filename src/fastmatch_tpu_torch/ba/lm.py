@@ -1,0 +1,95 @@
+"""Levenberg-Marquardt bundle adjustment.
+
+Port of ``fastmatch_tpu/ba/lm.py``: each iteration solves the
+Schur-reduced camera system with PCG, back-substitutes the point update and
+accepts or rejects with multiplicative damping; the gauge is fixed by
+freezing ``fixed_cams``. The JAX ``lax.while_loop`` is a Python loop here,
+reading one (accept, done) pair back per iteration. The grouped layout and
+the checkify sweep wait.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fastmatch_tpu_torch.ba.problem import BAProblem, Observations
+from fastmatch_tpu_torch.ba.schur import (
+    assemble,
+    back_substitute,
+    damped_pp_inverse,
+    pcg_solve,
+    segment_keys,
+)
+from fastmatch_tpu_torch.core.device import resolve_device
+from fastmatch_tpu_torch.core.lie import SE3
+
+
+class BAResult(NamedTuple):
+    poses: SE3
+    points: torch.Tensor
+    cost0: torch.Tensor
+    cost: torch.Tensor
+    iters: int           # LM iterations executed
+    accepted: int        # LM steps accepted
+
+
+def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
+                 lam0: float = 1e-3, huber_delta_static: float | None = None,
+                 rtol: float = 1e-6) -> BAResult:
+    """Run LM to convergence (or max_iters) on the problem's device."""
+    n_cams, n_points = problem.n_cams, problem.n_points
+    obs = problem.obs
+    keys = segment_keys(obs)
+    upd_mask = (problem.cam_mask & ~problem.fixed_cams).float()
+    pt_upd = problem.pt_mask.float()
+
+    def cost_at(R, t, X):
+        return assemble(SE3(R, t), X, obs, n_cams, n_points, huber_delta_static, keys)
+
+    R, t, X = problem.poses.R, problem.poses.t, problem.points
+    sys, cost0 = cost_at(R, t, X)
+    cost = cost0
+    lam = torch.tensor(lam0, dtype=torch.float32, device=X.device)
+    it = accepted = 0
+    done = False
+    while it < max_iters and not done:
+        Hpp_inv = damped_pp_inverse(sys, lam)
+        dx_c = pcg_solve(sys, obs, lam, n_points, upd_mask, keys, iters=pcg_iters,
+                         Hpp_inv=Hpp_inv)
+        dx_p = back_substitute(sys, obs, lam, dx_c, n_points, keys,
+                               Hpp_inv=Hpp_inv) * pt_upd[:, None]
+        new_poses = SE3.exp(dx_c).compose(SE3(R, t))
+        new_points = X + dx_p
+        new_sys, new_cost = cost_at(new_poses.R, new_poses.t, new_points)
+        accept_t = new_cost < cost
+        rel = (cost - new_cost).abs() / torch.clamp(cost, min=1e-12)
+        accept, small = torch.stack([accept_t, rel < rtol]).tolist()
+        if accept:
+            R, t, X, sys, cost = new_poses.R, new_poses.t, new_points, new_sys, new_cost
+            lam = torch.clamp(lam * 0.5, 1e-9, 1e6)
+            accepted += 1
+        else:
+            lam = torch.clamp(lam * 4.0, 1e-9, 1e6)
+        done = accept and small
+        it += 1
+    return BAResult(poses=SE3(R, t), points=X, cost0=cost0, cost=cost, iters=it,
+                    accepted=accepted)
+
+
+def sort_obs_by_point(problem: BAProblem) -> BAProblem:
+    """Sort the observation table by pt_idx (stable, mask-preserving): the
+    point-keyed reductions then need no permutation."""
+    o = problem.obs
+    order = torch.argsort(o.pt_idx, stable=True)
+    return problem._replace(obs=Observations(cam_idx=o.cam_idx[order],
+                                             pt_idx=o.pt_idx[order],
+                                             uv=o.uv[order], mask=o.mask[order]))
+
+
+def ba_solve(problem: BAProblem, device=None, **kwargs) -> BAResult:
+    """BA entry point on ``device`` (``cuda`` unless ``device="cpu"``);
+    keyword arguments as ``ba_solve_raw``."""
+    dev = resolve_device(device)
+    return ba_solve_raw(sort_obs_by_point(problem.to(dev)), **kwargs)

@@ -1,0 +1,228 @@
+"""Schur-complement reduced camera system, matrix-free.
+
+Port of ``fastmatch_tpu/ba/schur.py`` (the ungrouped path): block normal
+equations per camera (6x6), per point (3x3) and per observation (6x3
+coupling), and PCG on the reduced camera system through its matrix-vector
+product. Every reduction over the observation table goes through
+``_seg_sum`` and so through the K4 kernel wrapper
+(``kernels/segment_ops.sorted_segment_sum``), which needs sorted keys:
+point keys are sorted by ``ba_solve``; camera keys are put in order by one
+stable sort per solve (``segment_keys``), and camera-keyed values are
+permuted into that order before each sum. The grouped layout waits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fastmatch_tpu_torch.core.lie import hat
+from fastmatch_tpu_torch.kernels.segment_ops import sorted_segment_sum
+
+
+class SegmentKeys(NamedTuple):
+    """Sorted reduction keys of one observation table, built once per
+    solve. ``*_perm`` is the stable permutation that sorts the table's rows
+    by that key, or None when the table is already in that order."""
+
+    pt: torch.Tensor
+    pt_perm: torch.Tensor | None
+    cam: torch.Tensor
+    cam_perm: torch.Tensor | None
+
+
+def segment_keys(obs) -> SegmentKeys:
+    def one(idx):
+        if bool((idx[1:] >= idx[:-1]).all()):
+            return idx.to(torch.int32).contiguous(), None
+        perm = torch.argsort(idx, stable=True)
+        return idx[perm].to(torch.int32).contiguous(), perm
+
+    pt, pt_perm = one(obs.pt_idx)
+    cam, cam_perm = one(obs.cam_idx)
+    return SegmentKeys(pt, pt_perm, cam, cam_perm)
+
+
+def _project(p):
+    z = p[..., 2:3]
+    z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    return p[..., :2] / z
+
+
+def residuals_and_jacobians(poses, points, obs, huber_delta: float | None = None):
+    """Per-observation residuals (O, 2), Jacobians Jc (O, 2, 6), Jp
+    (O, 2, 3) and weights w (O,) folding mask, cheirality and Huber IRLS."""
+    Rc = _gather_rows(poses.R, obs.cam_idx)
+    tc = _gather_rows(poses.t, obs.cam_idx)
+    X = _gather_rows(points, obs.pt_idx)
+    p = torch.einsum("oij,oj->oi", Rc, X) + tc
+    res = _project(p) - obs.uv
+    z = torch.where(p[:, 2].abs() < 1e-9, torch.full_like(p[:, 2], 1e-9), p[:, 2])
+    iz = 1.0 / z
+    zeros = torch.zeros_like(iz)
+    Jproj = torch.stack([torch.stack([iz, zeros, -p[:, 0] * iz * iz], -1),
+                         torch.stack([zeros, iz, -p[:, 1] * iz * iz], -1)], -2)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[0], 3, 3)
+    Jc = Jproj @ torch.cat([eye, -hat(p)], dim=-1)
+    Jp = Jproj @ Rc
+    w = obs.mask.float()
+    w = w * (p[:, 2] > 1e-6)
+    if huber_delta is not None:
+        rn = torch.linalg.vector_norm(res, dim=-1)
+        w = w * torch.where(rn <= huber_delta, 1.0,
+                            huber_delta / torch.clamp(rn, min=1e-12))
+    return res, Jc, Jp, w
+
+
+class BlockSystem(NamedTuple):
+    """Block normal equations assembled from one linearization."""
+
+    Hcc: torch.Tensor  # (C, 6, 6)
+    Hpp: torch.Tensor  # (P, 3, 3)
+    Wcp: torch.Tensor  # (O, 6, 3)
+    gc: torch.Tensor   # (C, 6)
+    gp: torch.Tensor   # (P, 3)
+    Jc: torch.Tensor
+    Jp: torch.Tensor
+    w: torch.Tensor
+
+
+def _seg_sum(vals, keys, n, perm=None):
+    """Segment sum of (O, ...) rows by sorted ``keys`` into (n, ...), through
+    the K4 kernel wrapper; ``perm`` puts the rows in key order first."""
+    shape = vals.shape
+    flat = vals.reshape(shape[0], -1)
+    if perm is not None:
+        flat = flat[perm]
+    return sorted_segment_sum(flat.contiguous(), keys, n).reshape((n,) + shape[1:])
+
+
+def _seg_sum_pt(vals, keys: SegmentKeys, n):
+    return _seg_sum(vals, keys.pt, n, keys.pt_perm)
+
+
+def _seg_sum_cam(vals, keys: SegmentKeys, n):
+    return _seg_sum(vals, keys.cam, n, keys.cam_perm)
+
+
+def _gather_rows(table, idx):
+    """table[idx] (plain indexing, as in the JAX package)."""
+    return table[idx]
+
+
+def assemble(poses, points, obs, n_cams, n_points, huber_delta=None, keys=None):
+    """Block normal equations and cost at (poses, points)."""
+    if keys is None:
+        keys = segment_keys(obs)
+    res, Jc, Jp, w = residuals_and_jacobians(poses, points, obs, huber_delta)
+    wv = w[:, None, None]
+    Hcc = _seg_sum_cam(torch.einsum("oki,okj->oij", Jc * wv, Jc), keys, n_cams)
+    Hpp = _seg_sum_pt(torch.einsum("oki,okj->oij", Jp * wv, Jp), keys, n_points)
+    Wcp = torch.einsum("oki,okj->oij", Jc * wv, Jp)
+    gc = -_seg_sum_cam(torch.einsum("oki,ok->oi", Jc * wv, res), keys, n_cams)
+    gp = -_seg_sum_pt(torch.einsum("oki,ok->oi", Jp * wv, res), keys, n_points)
+    cost = 0.5 * (w * (res * res).sum(-1)).sum()
+    return BlockSystem(Hcc, Hpp, Wcp, gc, gp, Jc, Jp, w), cost
+
+
+def _damped(H, lam):
+    """Levenberg damping: H + lam * diag(H) + eps*I."""
+    d = torch.diagonal(H, dim1=-2, dim2=-1)
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return H + (lam * d + 1e-8)[..., None, :] * eye
+
+
+def inv3x3(H):
+    """Batched closed-form (cofactor) 3x3 inverse."""
+    a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
+    d, e, f = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
+    g, h, i = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    Hc = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * D + c * G
+    inv = torch.stack([torch.stack([A, B, C], -1), torch.stack([D, E, F], -1),
+                       torch.stack([G, Hc, I], -1)], -2)
+    return inv / det[..., None, None]
+
+
+def damped_pp_inverse(sys: BlockSystem, lam):
+    """(H_pp + lam diag)^-1, closed form; constant for a fixed (sys, lam)."""
+    return inv3x3(_damped(sys.Hpp, lam))
+
+
+def schur_matvec(sys: BlockSystem, obs, lam, x, n_points, cam_update_mask,
+                 keys: SegmentKeys, Hpp_inv=None):
+    """S @ x for the reduced camera system; x (C, 6)."""
+    x = x * cam_update_mask[:, None]
+    if Hpp_inv is None:
+        Hpp_inv = damped_pp_inverse(sys, lam)
+    yo = torch.einsum("oij,oi->oj", sys.Wcp, _gather_rows(x, obs.cam_idx))
+    yp = _seg_sum_pt(yo, keys, n_points)
+    zp = torch.einsum("pij,pj->pi", Hpp_inv, yp)
+    wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_rows(zp, obs.pt_idx))
+    wc = _seg_sum_cam(wo, keys, x.shape[0])
+    Sx = torch.einsum("cij,cj->ci", _damped(sys.Hcc, lam), x) - wc
+    return Sx * cam_update_mask[:, None]
+
+
+def reduced_rhs(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
+                keys: SegmentKeys, Hpp_inv=None):
+    """rhs = gc - H_cp (H_pp+lam)^-1 gp."""
+    if Hpp_inv is None:
+        Hpp_inv = damped_pp_inverse(sys, lam)
+    zp = torch.einsum("pij,pj->pi", Hpp_inv, sys.gp)
+    wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_rows(zp, obs.pt_idx))
+    wc = _seg_sum_cam(wo, keys, sys.gc.shape[0])
+    return (sys.gc - wc) * cam_update_mask[:, None]
+
+
+def back_substitute(sys: BlockSystem, obs, lam, dx_c, n_points, keys: SegmentKeys,
+                    Hpp_inv=None):
+    """dx_p = (H_pp+lam)^-1 (gp - H_pc dx_c)."""
+    if Hpp_inv is None:
+        Hpp_inv = damped_pp_inverse(sys, lam)
+    yo = torch.einsum("oij,oi->oj", sys.Wcp, _gather_rows(dx_c, obs.cam_idx))
+    yp = _seg_sum_pt(yo, keys, n_points)
+    return torch.einsum("pij,pj->pi", Hpp_inv, sys.gp - yp)
+
+
+def pcg_solve(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
+              keys: SegmentKeys, iters: int = 40, Hpp_inv=None):
+    """Preconditioned CG on the reduced camera system (block-Jacobi
+    preconditioner, fixed iteration count, stagnation guarded as in the JAX
+    package)."""
+    if Hpp_inv is None:
+        Hpp_inv = damped_pp_inverse(sys, lam)
+    rhs = reduced_rhs(sys, obs, lam, n_points, cam_update_mask, keys, Hpp_inv)
+    Minv = torch.linalg.inv(_damped(sys.Hcc, lam))
+
+    def precond(r):
+        return torch.einsum("cij,cj->ci", Minv, r) * cam_update_mask[:, None]
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    p = z
+    rz = (r * z).sum()
+    for _ in range(iters):
+        Sp = schur_matvec(sys, obs, lam, p, n_points, cam_update_mask, keys, Hpp_inv)
+        pSp = (p * Sp).sum()
+        small = pSp.abs() < 1e-20
+        alpha = torch.where(small, 0.0, rz / torch.where(small, 1.0, pSp))
+        x = x + alpha * p
+        r = r - alpha * Sp
+        z = precond(r)
+        rz_new = (r * z).sum()
+        small = rz.abs() < 1e-20
+        beta = torch.where(small, 0.0, rz_new / torch.where(small, 1.0, rz))
+        p = z + beta * p
+        rz = rz_new
+    return x

@@ -1,0 +1,98 @@
+"""Batched-hypothesis RANSAC for the essential matrix (8-point solver).
+
+Port of ``fastmatch_tpu/geometry/ransac.py``. Each estimator is split into
+sampling (``_sample_minimal_sets``, Gumbel top-k from a ``torch.Generator``)
+and a private ``*_from_samples`` function that takes the (K, s) indices, so
+tests can feed the port the indices JAX drew and expect JAX's result.
+``solver="5pt"`` waits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from fastmatch_tpu_torch.core.device import resolve_device
+from fastmatch_tpu_torch.geometry.epipolar import (
+    decompose_essential,
+    eight_point_essential,
+    sampson_error,
+    triangulate_midpoint,
+)
+
+
+class RansacResult(NamedTuple):
+    R: torch.Tensor          # (3, 3) relative rotation (x2 = R x1 + t)
+    t: torch.Tensor          # (3,) unit translation
+    E: torch.Tensor          # (3, 3) refined essential
+    inliers: torch.Tensor    # (P,) bool
+    n_inliers: torch.Tensor  # scalar int
+    ok: torch.Tensor         # scalar bool
+
+
+def argmax_first(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """argmax with the lowest index among equal maxima (jnp.argmax's rule)."""
+    mx = x.max(dim=dim, keepdim=True).values
+    ar = torch.arange(x.shape[dim], device=x.device)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    return torch.where(x == mx, ar.view(shape), x.shape[dim]).min(dim=dim).values
+
+
+def _sample_minimal_sets(generator: torch.Generator, mask: torch.Tensor,
+                         n_hyp: int, sample_size: int) -> torch.Tensor:
+    """(n_hyp, sample_size) indices drawn without replacement from valid
+    entries: Gumbel noise on the masked scores, then top-k."""
+    p = mask.shape[0]
+    u = torch.rand((n_hyp, p), generator=generator, device=mask.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    g = -torch.log(-torch.log(u))
+    g = torch.where(mask[None, :], g, -torch.inf)
+    return torch.topk(g, sample_size, dim=1).indices
+
+
+def _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers):
+    Es = eight_point_essential(x1[idx], x2[idx])
+    errs = sampson_error(Es, x1[None], x2[None])
+    inl = (errs < thr) & mask[None, :]
+    counts = inl.sum(1)
+    best = argmax_first(counts)
+    E, inliers = Es[best], inl[best]
+    # Iterated weighted 8-point refit, kept only when support does not drop.
+    for _ in range(3):
+        E1 = eight_point_essential(x1, x2, w=inliers.float())
+        inl1 = (sampson_error(E1, x1, x2) < thr) & mask
+        better = inl1.sum() >= inliers.sum()
+        E = torch.where(better, E1, E)
+        inliers = torch.where(better, inl1, inliers)
+    Rs, ts = decompose_essential(E)
+    d1, d2 = triangulate_midpoint(Rs, ts, x1[None], x2[None])
+    votes = ((d1 > 0) & (d2 > 0) & inliers[None, :]).sum(1)
+    b = argmax_first(votes)
+    n_in = inliers.sum()
+    return RansacResult(R=Rs[b], t=ts[b], E=E, inliers=inliers, n_inliers=n_in,
+                        ok=(n_in >= min_inliers)
+                        & (votes[b] > 0.6 * torch.clamp(n_in, min=1)))
+
+
+def ransac_essential(x1, x2, mask, thr: float = 1e-4, n_hyp: int = 512,
+                     min_inliers: int = 15, generator: torch.Generator | None = None,
+                     device=None) -> RansacResult:
+    """Relative pose from normalized correspondences x1, x2 (P, 2) with
+    validity mask (P,) on ``device`` (``cuda`` unless ``device="cpu"``).
+    ``thr`` is the squared Sampson threshold in normalized units."""
+    dev = resolve_device(device)
+    x1, x2, mask = x1.to(dev), x2.to(dev), mask.to(dev)
+    p_count = mask.shape[0]
+    if p_count < 8:
+        return RansacResult(
+            R=torch.eye(3, device=dev), t=torch.zeros(3, device=dev),
+            E=torch.zeros((3, 3), device=dev),
+            inliers=torch.zeros(p_count, dtype=torch.bool, device=dev),
+            n_inliers=torch.tensor(0, device=dev),
+            ok=torch.tensor(False, device=dev))
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    idx = _sample_minimal_sets(generator, mask, n_hyp, 8)
+    return _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers)

@@ -1,0 +1,133 @@
+"""Fused distance + top-2 + column-argmin (K2) and the fused matcher.
+
+Port of ``fastmatch_tpu/kernels/distance_topk.py``. ``distance_topk`` is the
+kernel wrapper: on a CUDA tensor it launches ``csrc/distance_topk.cu`` (one
+launch for any bank size: the TPU kernel's 4096-row limit and chunked merge
+were a VMEM artifact), on a CPU tensor it takes ``distance_topk_plain``,
+the same function in plain PyTorch. ``match_pair_fused`` adds the ratio test
+and the mutual check, as ``_match_pair_pallas_jit`` does.
+
+Semantics (decision-identical to ``matching/matcher.match_pair_plain``):
+rows are ordered by ``-2 a.b + |b|^2(masked)`` and columns by
+``-2 a.b + |a|^2(masked)``, masked entries carry ``BIG``, and ties go to the
+lowest index in both reductions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from fastmatch_tpu_torch.core.containers import Descriptors, Matches
+from fastmatch_tpu_torch.kernels import _build
+from fastmatch_tpu_torch.matching.matcher import BIG
+
+_TN = 32          # query rows per block (csrc/distance_topk.cu)
+_TM = 64          # bank columns per tile
+_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
+
+
+def _plain_top2(srow: torch.Tensor):
+    """Row-wise (v1, i1, v2) with the lowest index winning ties, as the
+    kernels reduce (min, then the minimum index attaining it)."""
+    m = srow.shape[1]
+    col = torch.arange(m, device=srow.device)
+    v1 = srow.min(dim=1, keepdim=True).values
+    i1 = torch.where(srow == v1, col, m).min(dim=1, keepdim=True).values
+    v2 = torch.where(col == i1, BIG, srow).min(dim=1, keepdim=True).values
+    return v1[:, 0], i1[:, 0], v2[:, 0]
+
+
+def distance_topk_plain(a, b, b2m, a2m, fast: bool = False):
+    """Plain PyTorch version of the kernel: (idx1, d1, d2nd, nnb)."""
+    if fast:
+        a = a.to(torch.bfloat16).float()
+        b = b.to(torch.bfloat16).float()
+    neg2 = -2.0 * (a @ b.T)
+    v1, i1, v2 = _plain_top2(neg2 + b2m[None, :])
+    d1 = torch.clamp(v1 + a2m, min=0.0)
+    d2 = torch.clamp(v2 + a2m, min=0.0)
+    scol = neg2 + a2m[:, None]
+    cm = scol.min(dim=0, keepdim=True).values
+    row = torch.arange(a.shape[0], device=a.device)[:, None]
+    nnb = torch.where(scol == cm, row, a.shape[0]).min(dim=0).values
+    return i1.to(torch.int32), d1, d2, nnb.to(torch.int32)
+
+
+def _check_inputs(a, b, b2m, a2m):
+    n, d = a.shape
+    m, d2 = b.shape
+    if d != d2 or d % 32 or d > 256:
+        raise ValueError(f"descriptor dims must match, divide by 32 and be <= 256; got {d}/{d2}")
+    for name, t, shape in (("a", a, (n, d)), ("b", b, (m, d)), ("b2m", b2m, (m,)),
+                           ("a2m", a2m, (n,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != a.device or not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous on {a.device}")
+    if n == 0 or m == 0:
+        raise ValueError("empty query set or bank")
+
+
+def distance_topk(a, b, b2m, a2m, fast: bool = False):
+    """Kernel entry. a (N, D), b (M, D) float32; b2m (M,), a2m (N,) masked
+    squared norms (+BIG where dead). Returns (idx1 (N,) int32, d1 (N,),
+    d2nd (N,), nnb (M,) int32)."""
+    if a.device.type == "cpu":
+        return distance_topk_plain(a, b, b2m, a2m, fast)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    _check_inputs(a, b, b2m, a2m)
+    lib = _build.load("distance_topk")
+    fn = lib.fm_distance_topk
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_void_p])
+    n, d = a.shape
+    m = b.shape[0]
+    row_blocks = -(-n // _TN)
+    tiles = -(-m // _TM)
+    splits = max(1, min(tiles, -(-_TARGET_BLOCKS // row_blocks)))
+    dev = a.device
+    part_v1 = torch.empty((splits, n), dtype=torch.float32, device=dev)
+    part_i1 = torch.empty((splits, n), dtype=torch.int32, device=dev)
+    part_v2 = torch.empty((splits, n), dtype=torch.float32, device=dev)
+    col_key = torch.empty((m,), dtype=torch.int64, device=dev)
+    idx1 = torch.empty((n,), dtype=torch.int32, device=dev)
+    d1 = torch.empty((n,), dtype=torch.float32, device=dev)
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    nnb = torch.empty((m,), dtype=torch.int32, device=dev)
+    P = _build.ptr
+    rc = fn(P(a), P(b), P(b2m), P(a2m), n, m, d, int(fast), splits,
+            P(part_v1), P(part_i1), P(part_v2), P(col_key), P(idx1), P(d1),
+            P(d2), P(nnb), _build.stream_of(a))
+    _build.check(rc, "distance_topk")
+    distance_topk.launches += 1
+    return idx1, d1, d2, nnb
+
+
+distance_topk.launches = 0
+
+
+def match_pair_fused(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
+                     cross_check: bool = True, precision: str = "exact") -> Matches:
+    """Fused-kernel matcher (the port of ``match_pair_pallas``):
+    decision-identical to ``match_pair_plain`` in exact mode; ``"fast"``
+    feeds the product in bf16 with fp32 accumulation."""
+    if precision not in ("exact", "fast"):
+        raise ValueError(f"precision must be 'exact' or 'fast', got {precision!r}")
+    a = desc_a.data.float().contiguous()
+    b = desc_b.data.float().contiguous()
+    n = a.shape[0]
+    a2 = (a * a).sum(-1)
+    b2 = (b * b).sum(-1)
+    a2m = torch.where(desc_a.mask, a2, BIG).contiguous()
+    b2m = torch.where(desc_b.mask, b2, BIG).contiguous()
+    idx1, d1, d2nd, nnb = distance_topk(a, b, b2m, a2m, fast=precision == "fast")
+    r = torch.tensor(ratio, dtype=torch.float32, device=a.device)
+    ok = desc_a.mask & (d1 < r * r * d2nd) & (d2nd < BIG)
+    if cross_check:
+        mutual = nnb[idx1.long()] == torch.arange(n, dtype=torch.int32, device=a.device)
+        ok = ok & mutual
+    return Matches(idx=idx1, dist=torch.where(ok, d1, BIG), valid=ok)

@@ -1,0 +1,81 @@
+"""Descriptor matching: distance matrix, top-2, Lowe ratio, cross-check.
+
+Port of ``fastmatch_tpu/matching/matcher.py``. ``match_pair_plain`` mirrors
+``match_pair_jnp`` op for op and is the parity anchor of the port;
+``match_pair`` dispatches by device: on ``cuda`` to the fused kernel
+(``kernels/distance_topk.py``), on ``cpu`` to the plain version.
+
+Conventions: distances are squared L2; the ratio test is
+``d1 < ratio^2 * d2`` with a real second neighbour required (``d2 < BIG``);
+masked entries carry the finite ``BIG`` (never ``inf``); ties break toward
+the lower index.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fastmatch_tpu_torch.core.containers import Descriptors, Matches
+from fastmatch_tpu_torch.core.device import resolve_device
+
+# Large-but-finite stand-in for +inf, exactly representable in f32 (the JAX
+# package's value: inf - inf would poison the ratio test).
+BIG = float(np.float32(3.0e38))
+
+
+def match_pair_plain(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
+                     cross_check: bool = True) -> Matches:
+    """Reference matcher, op for op ``match_pair_jnp``: rows ordered by
+    ``-2 a.b + |b|^2(masked)``, columns by ``-2 a.b + |a|^2(masked)``;
+    |a|^2 is added only when materializing distances."""
+    a = desc_a.data.float()
+    b = desc_b.data.float()
+    a2 = (a * a).sum(-1)
+    b2 = (b * b).sum(-1)
+    a2m = torch.where(desc_a.mask, a2, BIG)
+    b2m = torch.where(desc_b.mask, b2, BIG)
+    neg2 = -2.0 * (a @ b.T)
+    srow = neg2 + b2m[None, :]
+    # lax.top_k(-srow, 2): the two smallest, ties to the lower index (a
+    # stable ascending sort gives exactly that order).
+    s, idx = torch.sort(srow, dim=1, stable=True)
+    idx1 = idx[:, 0]
+    d1 = torch.clamp(s[:, 0] + a2, min=0.0)
+    d2nd = torch.clamp(s[:, 1] + a2, min=0.0)
+    r = torch.tensor(ratio, dtype=torch.float32, device=a.device)
+    ok = desc_a.mask & (d1 < r * r * d2nd) & (d2nd < BIG)
+    if cross_check:
+        scol = neg2 + a2m[:, None]
+        cm = scol.min(dim=0, keepdim=True).values
+        row = torch.arange(a.shape[0], device=a.device)[:, None]
+        nn_b = torch.where(scol == cm, row, a.shape[0]).min(dim=0).values
+        mutual = nn_b[idx1] == torch.arange(a.shape[0], device=a.device)
+        ok = ok & mutual
+    return Matches(idx=idx1.to(torch.int32), dist=torch.where(ok, d1, BIG), valid=ok)
+
+
+def match_pair(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
+               cross_check: bool = True, backend: str = "auto",
+               precision: str = "exact", device=None) -> Matches:
+    """Match one descriptor set against another on ``device`` (``cuda``
+    unless ``device="cpu"``).
+
+    backend: "auto" (the fused kernel on cuda, the plain version on cpu),
+    "plain", or "kernel" (the kernel wrapper, which takes its own plain
+    version on a CPU tensor). precision (kernel backend only): "exact" or
+    "fast" (bf16 inputs, fp32 accumulation).
+    """
+    dev = resolve_device(device)
+    desc_a = Descriptors(desc_a.data.to(dev), desc_a.mask.to(dev))
+    desc_b = Descriptors(desc_b.data.to(dev), desc_b.mask.to(dev))
+    if backend == "auto":
+        backend = "kernel" if dev.type == "cuda" else "plain"
+    if backend == "plain":
+        return match_pair_plain(desc_a, desc_b, ratio=ratio, cross_check=cross_check)
+    if backend == "kernel":
+        from fastmatch_tpu_torch.kernels.distance_topk import match_pair_fused
+
+        return match_pair_fused(desc_a, desc_b, ratio=ratio,
+                                cross_check=cross_check, precision=precision)
+    raise ValueError(f"unknown backend {backend!r}")

@@ -1,0 +1,253 @@
+"""The port's matcher (fastmatch_tpu_torch, CPU) against the JAX package's.
+
+Both sides get the same numpy inputs from a seed. The JAX side runs its
+plain reference ``match_pair_jnp`` and its fused kernel
+``match_pair_pallas(interpret=True)`` as tests/test_kernels.py does; the
+port runs ``match_pair(device="cpu")`` and the K2 wrapper
+``distance_topk`` on CPU tensors, which take the kernel's plain version.
+
+Tolerances: decisions (valid, idx) are compared exactly on fixtures without
+near-ties; distances to rtol/atol 1e-5 (the two frameworks sum the 128-term
+dot products in different orders, a few float32 ulps apart). Tie-heavy
+fixtures and bf16 ("fast") mode need only >= 99% decision agreement, the
+JAX package's own gate for its fast path.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from fastmatch_tpu.core.containers import Descriptors as JDescriptors
+from fastmatch_tpu.core.containers import descriptors_from_numpy as j_descriptors_from_numpy
+from fastmatch_tpu.kernels.distance_topk import distance_topk as j_distance_topk
+from fastmatch_tpu.kernels.distance_topk import match_pair_pallas
+from fastmatch_tpu.matching.matcher import BIG as J_BIG
+from fastmatch_tpu.matching.matcher import match_pair_jnp
+from synth import corresponding_descriptors, random_descriptors
+
+from fastmatch_tpu_torch.interop import descriptors_from_arrays, descriptors_from_numpy
+from fastmatch_tpu_torch.kernels import distance_topk as k2
+from fastmatch_tpu_torch.matching.matcher import BIG, match_pair, match_pair_plain
+
+torch.set_num_threads(1)
+
+
+def _both(a, b, mask_a=None, mask_b=None):
+    mask_a = np.ones(len(a), bool) if mask_a is None else mask_a
+    mask_b = np.ones(len(b), bool) if mask_b is None else mask_b
+    jd = (JDescriptors(jnp.asarray(a), jnp.asarray(mask_a)),
+          JDescriptors(jnp.asarray(b), jnp.asarray(mask_b)))
+    td = (descriptors_from_arrays(a, mask_a), descriptors_from_arrays(b, mask_b))
+    return jd, td
+
+
+def _assert_same(port, ref):
+    valid = port.valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(ref.valid))
+    np.testing.assert_array_equal(port.idx.numpy()[valid], np.asarray(ref.idx)[valid])
+    np.testing.assert_allclose(port.dist.numpy()[valid], np.asarray(ref.dist)[valid],
+                               rtol=1e-5, atol=1e-5)
+
+
+def _agreement(port, ref):
+    pv, rv = port.valid.numpy(), np.asarray(ref.valid)
+    pi, ri = port.idx.numpy(), np.asarray(ref.idx)
+    same = (pv == rv) & (~rv | (pi == ri))
+    return same.mean()
+
+
+def _padded(a, cap):
+    data = np.zeros((cap, a.shape[1]), np.float32)
+    data[:len(a)] = a
+    mask = np.zeros(cap, bool)
+    mask[:len(a)] = True
+    return data, mask
+
+
+@pytest.mark.parametrize("n", [0, 300, 600])
+def test_descriptors_from_numpy_vs_jax(rng, n):
+    desc = random_descriptors(rng, n)
+    ref = j_descriptors_from_numpy(desc, capacity=512)
+    port = descriptors_from_numpy(desc, capacity=512)
+    np.testing.assert_array_equal(port.data.numpy(), np.asarray(ref.data))
+    np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
+    with pytest.raises(ValueError, match="descriptors"):
+        descriptors_from_numpy(desc[:, :64])
+
+
+def test_big_is_the_jax_constant():
+    assert BIG == J_BIG
+    assert np.float32(BIG) == np.float32(3.0e38)
+
+
+@pytest.mark.parametrize("cross_check", [False, True])
+@pytest.mark.parametrize("backend", ["plain", "kernel"])
+def test_random_parity(rng, cross_check, backend):
+    a, b, _ = corresponding_descriptors(rng, 400, noise=0.1, n_distract=112)
+    (pa, ma), (pb, mb) = _padded(a, 512), _padded(b, 512)
+    (ja, jb), (ta, tb) = _both(pa, pb, ma, mb)
+    ref = match_pair_jnp(ja, jb, cross_check=cross_check)
+    port = match_pair(ta, tb, cross_check=cross_check, backend=backend, device="cpu")
+    _assert_same(port, ref)
+    _assert_same(port, match_pair_pallas(ja, jb, cross_check=cross_check, interpret=True))
+
+
+def test_recovers_ground_truth(rng):
+    a, b, gt = corresponding_descriptors(rng, 300, noise=0.05, n_distract=50)
+    _, (ta, tb) = _both(a, b)
+    m = match_pair(ta, tb, device="cpu")
+    valid = m.valid.numpy()
+    assert valid.sum() > 250
+    assert (m.idx.numpy()[valid] == gt[valid]).mean() > 0.99
+
+
+def test_rectangular(rng):
+    a = random_descriptors(rng, 700)
+    b = random_descriptors(rng, 300)
+    (ja, jb), (ta, tb) = _both(a, b)
+    _assert_same(match_pair(ta, tb, device="cpu"), match_pair_jnp(ja, jb))
+
+
+def test_adversarial_masks(rng):
+    a = random_descriptors(rng, 512)
+    b = random_descriptors(rng, 512)
+    keep_a = np.arange(512) % 5 != 0
+    keep_b = np.arange(512) % 7 != 3
+    (ja, jb), (ta, tb) = _both(a, b, keep_a, keep_b)
+    ref = match_pair_jnp(ja, jb)
+    for backend in ("plain", "kernel"):
+        port = match_pair(ta, tb, backend=backend, device="cpu")
+        _assert_same(port, ref)
+        assert not port.valid.numpy()[~keep_a].any()
+        assert np.all(keep_b[port.idx.numpy()[port.valid.numpy()]])
+
+
+@pytest.mark.parametrize("backend", ["plain", "kernel"])
+def test_all_b_masked(rng, backend):
+    a = random_descriptors(rng, 100)
+    b = random_descriptors(rng, 100)
+    (ja, jb), (ta, tb) = _both(a, b, None, np.zeros(100, bool))
+    port = match_pair(ta, tb, backend=backend, device="cpu")
+    assert int(port.count()) == 0
+    assert int(match_pair_pallas(ja, jb, interpret=True).count()) == 0
+    # Invalid rows carry the finite BIG, never inf.
+    assert np.all(port.dist.numpy() == np.float32(BIG))
+
+
+def test_single_live_column_has_no_ratio(rng):
+    a = random_descriptors(rng, 64)
+    b = random_descriptors(rng, 64)
+    mask_b = np.zeros(64, bool)
+    mask_b[5] = True
+    (ja, jb), (ta, tb) = _both(a, b, None, mask_b)
+    port = match_pair(ta, tb, cross_check=False, ratio=1.5, device="cpu")
+    assert int(port.count()) == 0
+    _assert_same(port, match_pair_jnp(ja, jb, cross_check=False, ratio=1.5))
+
+
+@pytest.mark.parametrize("backend", ["plain", "kernel"])
+def test_duplicate_descriptor_ties(backend):
+    # Identical rows in B: both packages pick the lowest index, and the
+    # column argmin picks the lowest row.
+    a = np.tile(np.eye(8, 128, dtype=np.float32), (32, 1))
+    b = np.tile(np.eye(8, 128, dtype=np.float32), (64, 1))
+    (ja, jb), (ta, tb) = _both(a, b)
+    for cc in (False, True):
+        ref = match_pair_jnp(ja, jb, cross_check=cc, ratio=1.5)
+        port = match_pair(ta, tb, cross_check=cc, ratio=1.5, backend=backend,
+                          device="cpu")
+        np.testing.assert_array_equal(port.idx.numpy(), np.asarray(ref.idx))
+        np.testing.assert_array_equal(port.valid.numpy(), np.asarray(ref.valid))
+    assert np.all(port.idx.numpy() == np.arange(256) % 8)
+
+
+def test_tie_heavy_agreement(rng):
+    # Quantized descriptors: many exact distance ties across rows and columns.
+    a = np.round(random_descriptors(rng, 600) * 8) / 8
+    b = np.round(random_descriptors(rng, 900) * 8) / 8
+    (ja, jb), (ta, tb) = _both(a.astype(np.float32), b.astype(np.float32))
+    ref = match_pair_jnp(ja, jb, ratio=0.95)
+    port = match_pair(ta, tb, ratio=0.95, device="cpu")
+    assert _agreement(port, ref) >= 0.99
+
+
+def test_large_bank_above_tpu_limit(rng):
+    # 5000 bank rows: above the TPU kernel's 4096-row VMEM limit, so the
+    # JAX side takes its chunked merge; the port has no such limit.
+    a, b, gt = corresponding_descriptors(rng, 256, noise=0.05, n_distract=4744)
+    (ja, jb), (ta, tb) = _both(a, b)
+    ref_kernel = match_pair_pallas(ja, jb, interpret=True)
+    ref_plain = match_pair_jnp(ja, jb)
+    for backend in ("plain", "kernel"):
+        port = match_pair(ta, tb, backend=backend, device="cpu")
+        _assert_same(port, ref_plain)
+        _assert_same(port, ref_kernel)
+    valid = port.valid.numpy()
+    assert valid.sum() > 200
+    assert np.all(port.idx.numpy()[valid] == gt[valid])
+
+
+def test_kernel_raw_outputs_vs_jax(rng):
+    a = random_descriptors(rng, 256)
+    b = random_descriptors(rng, 384)
+    a2 = (a * a).sum(1)
+    b2 = (b * b).sum(1)
+    b2[::11] = J_BIG  # dead bank rows
+    ji1, jd1, jd2, jnnb = j_distance_topk(jnp.asarray(a), jnp.asarray(b),
+                                          jnp.asarray(b2), jnp.asarray(a2),
+                                          interpret=True)
+    before = k2.distance_topk.launches
+    ti1, td1, td2, tnnb = k2.distance_topk(*(torch.from_numpy(x) for x in (a, b, b2, a2)))
+    assert k2.distance_topk.launches == before  # CPU tensors take the plain version
+    np.testing.assert_array_equal(ti1.numpy(), np.asarray(ji1))
+    np.testing.assert_array_equal(tnnb.numpy(), np.asarray(jnnb))
+    np.testing.assert_allclose(td1.numpy(), np.asarray(jd1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), rtol=1e-5, atol=1e-5)
+    d2_full = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    d2_full[:, ::11] = np.inf
+    np.testing.assert_array_equal(ti1.numpy(), d2_full.argmin(1))
+
+
+def test_fast_precision_agreement(rng):
+    # bf16 inputs with fp32 accumulation on a near-tie-heavy workload.
+    n = 1024
+    base = random_descriptors(rng, n)
+    q = base[: n // 2] + 0.15 * np.abs(rng.standard_normal((n // 2, 128))).astype(np.float32)
+    q = np.vstack([q, np.abs(rng.standard_normal((n // 2, 128))).astype(np.float32)])
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    (ja, jb), (ta, tb) = _both(q, base)
+    ref = match_pair_jnp(ja, jb)
+    fast = match_pair(ta, tb, backend="kernel", precision="fast", device="cpu")
+    assert _agreement(fast, ref) >= 0.99
+    jfast = match_pair_pallas(ja, jb, precision="fast", interpret=True)
+    assert _agreement(fast, jfast) >= 0.99
+
+
+def test_plain_is_the_anchor(rng):
+    a = random_descriptors(rng, 200)
+    b = random_descriptors(rng, 220)
+    _, (ta, tb) = _both(a, b)
+    p = match_pair_plain(ta, tb)
+    k = match_pair(ta, tb, backend="kernel", device="cpu")
+    np.testing.assert_array_equal(p.valid.numpy(), k.valid.numpy())
+    np.testing.assert_array_equal(p.idx.numpy()[p.valid.numpy()],
+                                  k.idx.numpy()[k.valid.numpy()])
+
+
+def test_bad_arguments_rejected(rng):
+    _, (ta, tb) = _both(random_descriptors(rng, 8), random_descriptors(rng, 8))
+    with pytest.raises(ValueError, match="precision"):
+        match_pair(ta, tb, backend="kernel", precision="bf16", device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        match_pair(ta, tb, backend="pallas", device="cpu")
+
+
+def test_default_device_is_cuda(rng):
+    # The entry point runs on cuda unless asked for the CPU, and never
+    # falls back: without a card it raises.
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is usable")
+    _, (ta, tb) = _both(random_descriptors(rng, 8), random_descriptors(rng, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        match_pair(ta, tb)

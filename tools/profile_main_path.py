@@ -1,0 +1,126 @@
+"""Where the time goes on the port's main path, on one GPU.
+
+Runs ``reconstruct(images=...)`` of the smoke scene (``chip_smoke.SMOKE_SCENE``,
+640x480, default ``PipelineConfig``) three times on ``cuda``: once to warm up
+(kernel builds, cuBLAS/cuSOLVER handles, the caching allocator), once timed,
+and once under ``torch.profiler`` with CPU and CUDA activities (the
+profiler's own host cost more than doubles that run's wall time). Prints one
+JSON line and writes the same to ``chiprun_out/profile_main_path.json``:
+
+- wall seconds and host seconds per pipeline stage
+  (``Reconstruction.stage_seconds``) of the timed run, and of the profiled
+  run;
+- device busy seconds in the profiled run (the union of all kernel and
+  memcpy intervals) and the idle share of the timed and the profiled wall;
+- device time, launch count and mean microseconds per launch of the top
+  kernels by device time, and of the port's own CUDA kernels.
+
+    python tools/profile_main_path.py [--frames N] [--top K]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, ROOT)
+
+# The port's kernels by their CUDA function names (csrc/).
+PORT_KERNELS = {"topk_tiles": "K2", "topk_finalize": "K2", "gather_patches_kernel": "K3",
+                "segsum_sorted": "K4"}
+
+
+def _union_us(intervals):
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def main(argv=None) -> int:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import SMOKE_SCENE, nvidia_smi_line, render_smoke_scene
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.kernels import _build
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+    from fastmatch_tpu_torch.pipeline.reconstruct import reconstruct
+    from fastmatch_tpu_torch.utils.evaluation import ate_rmse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=SMOKE_SCENE["n_frames"])
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_main_path: CUDA is not available", file=sys.stderr)
+        return 2
+
+    _build.build_all()
+    scene, views = render_smoke_scene(args.frames)
+    cam = Pinhole.from_K(scene.K)
+    reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    by_name, intervals = {}, []
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        s, e = ev.time_range.start, ev.time_range.end
+        intervals.append((s, e))
+        d = by_name.setdefault(ev.name, [0.0, 0])
+        d[0] += e - s
+        d[1] += 1
+    busy_s = _union_us(intervals) * 1e-6
+
+    def row(name, us, n):
+        return dict(name=name[:120], device_ms=us * 1e-3, launches=n, mean_us=us / n)
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
+    port = {}
+    for name, (us, count) in by_name.items():
+        # Demangled names carry the signature: "(anonymous namespace)::segsum_sorted(...)".
+        short = name.split("(")[1 if name.startswith("(") else 0].split("::")[-1]
+        if short in PORT_KERNELS:
+            port[short] = dict(row(name, us, count), kernel=PORT_KERNELS[short])
+    n = rec.n_frames
+    gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
+    out = dict(
+        device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
+        frames=n, wall_s=wall_plain, frames_per_s=n / wall_plain,
+        stage_seconds=plain.stage_seconds, profiled_wall_s=wall,
+        profiled_stage_seconds=rec.stage_seconds, device_busy_s=busy_s,
+        device_idle_share=1.0 - busy_s / wall_plain,
+        device_idle_share_profiled=1.0 - busy_s / wall,
+        kernel_launches=sum(v[1] for v in by_name.values()),
+        ate=float(ate_rmse(rec.camera_centers(), gt)),
+        top_kernels=[row(k, *v) for k, v in top], port_kernels=port)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "profile_main_path.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
