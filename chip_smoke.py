@@ -8,15 +8,22 @@ Phases, in order; any failure exits nonzero before the result line:
 2. build of the CUDA kernels under ``src/fastmatch_tpu_torch/csrc/`` (one
    ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: K2 (fused distance/top-2/column argmin) at 2048x2048 and
-   2048x8192 in exact and fast mode, K3 (patch gather) at the orientation
-   and descriptor patch shapes of a 640x480 frame, K4 (sorted segment sum)
-   at the bundle adjustment's point- and camera-keyed shapes;
+   paths' shapes: K1 (batched fused matcher) at BASELINE.json config 2's
+   size (64 pairs of 2048-capacity sets with 1500 live 128-d descriptors,
+   exact, fast and packed binary, and fast at 256 pairs), K2 (fused
+   distance/top-2/column argmin) at 2048x2048 and 2048x8192 in exact and
+   fast mode, K3 (patch gather) at the orientation and descriptor patch
+   shapes of a 640x480 frame, K4 (sorted segment sum) and K5 (sorted row
+   gather) at the bundle adjustment's shapes;
 4. a small-input reference: ``reconstruct`` from synthetic features on the
    card and on the CPU, both held to the JAX package's ATE gate;
-5. the main path at BASELINE.json config 3's size: ``reconstruct(images=...)``
-   on rendered 640x480 frames with the default ``PipelineConfig``, with
-   every kernel's launch count set to 0 just before and read just after.
+5. the config-2 path from images: SIFT and ORB on 33 rendered 640x480
+   frames, matched as 32 consecutive pairs by ``match_batch`` (exact and
+   fast) and ``match_batch_hamming``, with the launch counts of K1, K2 and
+   K3 set to 0 just before and read just after;
+6. the config-3 main path: ``reconstruct(images=...)`` on the 50 rendered
+   frames with the default ``PipelineConfig``, with every kernel's launch
+   count set to 0 just before and read just after.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -43,7 +50,15 @@ ATE_GATE = 0.35
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_FP32_FLOPS = 67e12      # outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # tensor cores
+PEAK_INT_OPS = 1979e12       # int8 tensor cores: the card's highest integer rate
 PEAK_BYTES = 3.35e12         # HBM3
+
+# BASELINE.json config 2 (bench.py's workload): 64 pairs, capacity 2048,
+# 1500 live unit |N(0, 1)| 128-d descriptors per set; and 256 pairs.
+CONFIG2 = dict(batch=64, capacity=2048, live=1500, big_batch=256)
+CONFIG2_PAIRS = 32  # consecutive frame pairs of the smoke scene
+K1_MIN_VALID = 1000  # valid matches a gated K1 comparison needs
+DEV = "cuda"        # the device of the config-2 checks and phase
 
 
 def render_smoke_scene(n_frames=None):
@@ -106,6 +121,239 @@ def nvidia_smi_line():
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
+
+
+def _decisions_equal(got, ref):
+    """valid equal everywhere, idx equal where valid."""
+    return torch_all((got.valid == ref.valid) & (~ref.valid | (got.idx == ref.idx)))
+
+
+def torch_all(t):
+    return bool(t.all().item())
+
+
+def _config2_sets(rng, batch, matched=False):
+    """bench.py's make_pairs in numpy: (a, b) lists of (live, 128) unit
+    |N(0, 1)| sets, unrelated to each other. With ``matched``, each bank is
+    instead a permuted copy of its queries with N(0, 0.08) noise (unit
+    |.|), so about a fifth of the queries pass at ratio 0.8, many of them
+    near the threshold."""
+    import numpy as np
+
+    def unit(d):
+        return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+    def pair():
+        a = unit(np.abs(rng.standard_normal((CONFIG2["live"], 128))))
+        if not matched:
+            return a, unit(np.abs(rng.standard_normal((CONFIG2["live"], 128))))
+        b = unit(np.abs(a + 0.08 * rng.standard_normal(a.shape)))
+        return a, b[rng.permutation(CONFIG2["live"])]
+
+    raw = [pair() for _ in range(batch)]
+    return [a for a, _ in raw], [b for _, b in raw]
+
+
+def _agreement(got, ref, mask):
+    from fastmatch_tpu_torch.utils.evaluation import match_agreement
+
+    return float(match_agreement(got.idx, got.valid, ref.idx, ref.valid, mask))
+
+
+def k1_bound(mask_a, mask_b, ops_per_product, row_bytes, peak):
+    """(bound_ms, bound_by) of one K1 call on these inputs: one product per
+    live query and live bank row (``ops_per_product`` operations each), the
+    live rows' operands (``row_bytes`` each) and both masks read once, and
+    the three outputs (idx, dist, valid: 9 bytes a query) written once."""
+    la = mask_a.sum(-1).double()
+    lb = mask_b.sum(-1).double()
+    n_ops = ops_per_product * float((la * lb).sum())
+    n_bytes = (row_bytes * float(la.sum() + lb.sum()) + mask_a.numel() + mask_b.numel()
+               + 9 * mask_a.numel())
+    return bound(n_bytes, n_ops, peak)
+
+
+def check_k1(rng):
+    """K1 at config 2's size (64 pairs, capacity 2048, 1500 live 128-d).
+    Exact: decisions identical to the plain version on bench.py's unrelated
+    sets at ratio 0.8 (no match passes) and 1.0 (the mutual check decides),
+    and on noisy-copy banks at ratio 0.8; the distance error is measured
+    over their valid matches. Fast: >= 0.99 agreement with the exact plain
+    version on both inputs that give matches, at 64 and at 256 pairs.
+    Binary: identical to the popcount plain version, distances included.
+    Every gated comparison needs valid matches."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import BinaryDescriptors, Descriptors
+    from fastmatch_tpu_torch.interop import (batched_descriptors_from_numpy,
+                                             binary_descriptors_from_arrays)
+    from fastmatch_tpu_torch.kernels import batch_match as k1
+    from fastmatch_tpu_torch.matching import hamming
+    from fastmatch_tpu_torch.matching.matcher import stack_matches
+
+    dev = torch.device(DEV)
+    cap, B, d = CONFIG2["capacity"], CONFIG2["batch"], 128
+    min_valid = K1_MIN_VALID
+    details, errs = [], []
+
+    def sets(batch, matched):
+        a_sets, b_sets = _config2_sets(rng, batch, matched)
+        return (batched_descriptors_from_numpy(a_sets, cap, dev),
+                batched_descriptors_from_numpy(b_sets, cap, dev))
+
+    def record(rec, ok, why):
+        details.append(rec)
+        log("K1", json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"K1 {why}: {rec}")
+
+    def hold_exact(da, db, ratio, inputs, need_valid):
+        got = k1.match_batch_fused(da, db, ratio=ratio)
+        ref = k1.match_batch_fused_plain(da, db, ratio=ratio)
+        both = got.valid & ref.valid
+        n_valid = int(ref.valid.sum())
+        err = float((got.dist - ref.dist)[both].abs().max()) if bool(both.any()) else None
+        if err is not None:
+            errs.append(err)
+        same = _decisions_equal(got, ref)
+        record(dict(mode="exact", batch=int(da.mask.shape[0]), inputs=inputs, ratio=ratio,
+                    decisions_identical=same, n_valid=n_valid, max_abs_err=err,
+                    raw_idx_agreement=float((got.idx == ref.idx)[da.mask].float().mean())),
+               same and (n_valid >= min_valid or not need_valid),
+               "exact decisions differ from the plain version, or too few valid matches")
+        return ref
+
+    def hold_fast(da, db, ratio, inputs, exact_ref):
+        got = k1.match_batch_fused(da, db, ratio=ratio, fast=True)
+        fast_ref = k1.match_batch_fused_plain(da, db, ratio=ratio, fast=True)
+        agree = _agreement(got, exact_ref, da.mask)
+        both = got.valid & fast_ref.valid
+        n_valid = int(got.valid.sum())
+        record(dict(mode="fast", batch=int(da.mask.shape[0]), inputs=inputs, ratio=ratio,
+                    agreement_vs_exact_plain=agree,
+                    agreement_vs_fast_plain=_agreement(got, fast_ref, da.mask),
+                    n_valid=n_valid, max_abs_err_vs_fast_plain=float(
+                        (got.dist - fast_ref.dist)[both].abs().max()) if bool(both.any())
+                    else None),
+               agree >= 0.99 and n_valid >= min_valid,
+               "fast agreement below 0.99, or too few valid matches")
+
+    def timed(name, fn, plain_fn, bnd, batch, peak, reps=10, plain_reps=2):
+        ms = cuda_ms(fn, reps=reps)
+        plain_ms = cuda_ms(plain_fn, batches=3, reps=plain_reps)
+        rec = dict(mode=name, batch=batch, shape=[cap, cap, d], ms=ms,
+                   pairs_per_s=batch / ms * 1e3, plain_ms=plain_ms, bound_ms=bnd[0],
+                   bound_by=bnd[1], peak=peak)
+        record(rec, True, "")
+        return rec
+
+    # bench.py's workload: unrelated sets.
+    da, db = sets(B, matched=False)
+    hold_exact(da, db, 0.8, "unrelated", need_valid=False)
+    r1_ref = hold_exact(da, db, 1.0, "unrelated", need_valid=True)
+    hold_fast(da, db, 1.0, "unrelated", r1_ref)
+    del r1_ref
+    ex_bound = k1_bound(da.mask, db.mask, 2 * d, 4 * d, PEAK_FP32_FLOPS)
+    rec = timed("exact", lambda: k1.match_batch_fused(da, db),
+                lambda: k1.match_batch_fused_plain(da, db), ex_bound, B,
+                "fp32 CUDA cores, 67e12 FLOP/s")
+    timed("fast", lambda: k1.match_batch_fused(da, db, fast=True),
+          lambda: k1.match_batch_fused_plain(da, db, fast=True),
+          k1_bound(da.mask, db.mask, 2 * d, 2 * d, PEAK_BF16_FLOPS), B,
+          "bf16 operands: tensor-core peak 989e12 FLOP/s (the kernel runs fp32 FMAs)")
+
+    # Noisy-copy banks: thousands of valid matches, many near the threshold.
+    da, db = sets(B, matched=True)
+    ref = hold_exact(da, db, 0.8, "noisy copies", need_valid=True)
+    hold_fast(da, db, 0.8, "noisy copies", ref)
+    del ref, da, db
+    entry = dict(max_abs_err=max(errs), ms=rec["ms"], plain_ms=rec["plain_ms"],
+                 bound_ms=ex_bound[0], bound_by=ex_bound[1], library_ms=None)
+
+    # bench.py's binary leg: 64 x 2048 x 8 words, half the rows re-drawn.
+    words = rng.integers(0, 2 ** 32, size=(B, cap, 8), dtype=np.uint64).astype(np.uint32)
+    other = words.copy()
+    other[:, :cap // 2] = rng.integers(0, 2 ** 32, size=(B, cap // 2, 8),
+                                       dtype=np.uint64).astype(np.uint32)
+    ones = np.ones((B, cap), bool)
+    A = binary_descriptors_from_arrays(words, ones, dev)
+    Bk = binary_descriptors_from_arrays(other, ones, dev)
+
+    def popcount_plain():
+        return stack_matches(hamming.match_pair_hamming_plain(
+            BinaryDescriptors(pa, ma), BinaryDescriptors(pb, mb))
+            for pa, ma, pb, mb in zip(A.packed, A.mask, Bk.packed, Bk.mask))
+
+    def kernel_plain():
+        return hamming._quarter(k1.match_batch_fused_plain(
+            Descriptors(A.packed, A.mask), Descriptors(Bk.packed, Bk.mask),
+            ratio=hamming._ratio_sqrt(0.8), fast=True, const_sq_norm=256.0, binary=True))
+
+    got = hamming.match_batch_hamming(A, Bk, backend="mxu", device=DEV)
+    anchor = popcount_plain()
+    identical = (torch_all(got.valid == anchor.valid) and torch_all(got.dist == anchor.dist)
+                 and torch_all((got.idx == anchor.idx) | ~anchor.valid))
+    n_valid = int(anchor.valid.sum())
+    record(dict(mode="binary", batch=B, identical_to_popcount=identical,
+                identical_to_plain=_decisions_equal(got, kernel_plain()), n_valid=n_valid,
+                max_abs_err=float((got.dist - anchor.dist)[anchor.valid].abs().max())
+                if n_valid else None),
+           identical and n_valid >= min_valid,
+           "binary differs from the popcount plain version, or too few valid matches")
+    # +-1 products of 256 bits, as the TPU kernel counts them (d_eff = 32 W).
+    timed("binary", lambda: hamming.match_batch_hamming(A, Bk, backend="mxu", device=DEV),
+          kernel_plain, k1_bound(A.mask, Bk.mask, 2 * 256, 32, PEAK_INT_OPS), B,
+          "+-1 products of 256 bits against the int8 tensor-core peak 1979e12 op/s "
+          "(the kernel runs xor + popcount)")
+    del got, anchor, A, Bk
+
+    # Fast at 256 pairs on noisy-copy banks; the exact plain version is
+    # taken 64 pairs at a time.
+    BB = CONFIG2["big_batch"]
+    da, db = sets(BB, matched=True)
+    ref = stack_matches(
+        m for s in range(0, BB, B) for m in zip(*k1.match_batch_fused_plain(
+            type(da)(da.data[s:s + B], da.mask[s:s + B]),
+            type(db)(db.data[s:s + B], db.mask[s:s + B]))))
+    hold_fast(da, db, 0.8, "noisy copies", ref)
+    del ref
+    timed("fast", lambda: k1.match_batch_fused(da, db, fast=True),
+          lambda: k1.match_batch_fused_plain(da, db, fast=True),
+          k1_bound(da.mask, db.mask, 2 * d, 2 * d, PEAK_BF16_FLOPS), BB,
+          "bf16 operands: tensor-core peak 989e12 FLOP/s (the kernel runs fp32 FMAs)",
+          reps=4, plain_reps=1)
+    return entry, details
+
+
+def check_k5(rng):
+    """K5 at the smoke map's BA shape: 17788 sorted point keys into an
+    8192-row table of 3 columns (the points and the PCG's zp); bit-equal to
+    ``table[seg]``."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.kernels import segment_ops as k5
+
+    dev = torch.device(DEV)
+    O, N, used, D = 17788, 8192, 5025, 3
+    seg = torch.from_numpy(np.sort(rng.integers(0, used, O)).astype(np.int32)).to(dev)
+    table = torch.randn((N, D), device=dev)
+    got = k5.sorted_gather_rows(table, seg)
+    equal = bool(torch.equal(got, table[seg.long()]))
+    ms = cuda_ms(lambda: k5.sorted_gather_rows(table, seg))
+    plain_ms = cuda_ms(lambda: k5.gather_rows_plain(table, seg))
+    library_ms = cuda_ms(lambda: torch.index_select(table, 0, seg))
+    distinct = int(torch.unique(seg).numel())
+    b_ms, b_by = bound(4 * (O + O * D + distinct * D))
+    d = dict(rows=O, table=[N, D], distinct_keys=distinct, bit_equal=equal, ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    log("K5", json.dumps(d))
+    if not equal:
+        raise AssertionError("K5 differs from table[seg]")
+    entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=library_ms)
+    return entry, [d]
 
 
 def _descriptor_sets(rng, n, m, m_live, n_shared):
@@ -317,7 +565,124 @@ def small_reference():
             raise AssertionError(f"small reference on {dev}: {r}")
 
 
-def main_path():
+def _column_ties_only(got, anchor, desc_a, desc_b):
+    """K1's binary mode keeps the JAX kernel's value-based mutual test: a
+    query passes when it attains its bank row's minimum distance, where the
+    popcount matcher keeps only the lowest such query. Returns (number of
+    differing decisions, whether every difference is such a tie and all
+    else is identical, distances included)."""
+    import torch
+
+    from fastmatch_tpu_torch.matching import hamming
+
+    same = torch_all(got.valid | ~anchor.valid) and torch_all(
+        ((got.idx == anchor.idx) & (got.dist == anchor.dist)) | ~anchor.valid)
+    extra = got.valid & ~anchor.valid
+    for p in torch.nonzero(extra.any(-1))[:, 0].tolist():
+        h = hamming.hamming_distance_matrix(desc_a.packed[p], desc_b.packed[p])
+        h = torch.where(desc_a.mask[p][:, None], h, torch.iinfo(h.dtype).max)
+        q = torch.nonzero(extra[p])[:, 0]
+        i1 = got.idx[p, q].long()
+        same = same and torch_all(h[q, i1] == h[:, i1].min(dim=0).values)
+        same = same and torch_all(got.dist[p, q] == h[q, i1].float())
+    return int(extra.sum()), same
+
+
+def config2_images(views):
+    """BASELINE.json config 2 from images: SIFT (capacity 2048) and ORB
+    (``ORBConfig()``) on the first CONFIG2_PAIRS + 1 smoke frames, matched
+    as consecutive pairs by ``match_batch`` (K1 exact and fast) and
+    ``match_batch_hamming`` (K1 binary). Gates: K1 exact agrees with the
+    per-pair ``match_pair`` (K2) on >= 0.999 of the live queries, fast with
+    exact on >= 0.99, ORB identical to K1's plain version and to the
+    popcount plain version but for column ties (``_column_ties_only``), and
+    every pair has valid matches. Returns the launch counts of K1, K2, K3."""
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import BinaryDescriptors, Descriptors
+    from fastmatch_tpu_torch.features.orb import ORBConfig, detect_and_describe_orb
+    from fastmatch_tpu_torch.features.sift import detect_and_describe
+    from fastmatch_tpu_torch.kernels import batch_match as k1
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.kernels import patch_gather as k3
+    from fastmatch_tpu_torch.matching import hamming
+    from fastmatch_tpu_torch.matching.matcher import match_batch, match_pair, stack_matches
+
+    frames = views[:CONFIG2_PAIRS + 1]
+    wrappers = {"batch_match": k1.match_batch_fused, "distance_topk": k2.distance_topk,
+                "gather_patches": k3.gather_patches}
+    secs = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def pairs(items, cls, field):
+        first = cls(torch.stack([getattr(d, field) for d in items[:-1]]),
+                    torch.stack([d.mask for d in items[:-1]]))
+        second = cls(torch.stack([getattr(d, field) for d in items[1:]]),
+                     torch.stack([d.mask for d in items[1:]]))
+        return first, second
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    sift = stage("sift", lambda: [detect_and_describe(f, device=DEV)[1] for f in frames])
+    orb = stage("orb", lambda: [detect_and_describe_orb(f, ORBConfig(), device=DEV)[1]
+                                for f in frames])
+    da, db = pairs(sift, Descriptors, "data")
+    oa, ob = pairs(orb, BinaryDescriptors, "packed")
+    exact = stage("match_batch_exact",
+                  lambda: match_batch(da, db, backend="kernel", device=DEV))
+    fast = stage("match_batch_fast",
+                 lambda: match_batch(da, db, backend="kernel", precision="fast", device=DEV))
+    orb_m = stage("match_batch_hamming", lambda: hamming.match_batch_hamming(
+        oa, ob, backend="mxu", device=DEV))
+    per_pair = stage("match_pair_k2", lambda: stack_matches(
+        match_pair(Descriptors(a, ma), Descriptors(b, mb), device=DEV)
+        for a, ma, b, mb in zip(da.data, da.mask, db.data, db.mask)))
+    anchor = stage("popcount_plain", lambda: stack_matches(
+        hamming.match_pair_hamming_plain(BinaryDescriptors(a, ma), BinaryDescriptors(b, mb))
+        for a, ma, b, mb in zip(oa.packed, oa.mask, ob.packed, ob.mask)))
+    launches = {k: w.launches for k, w in wrappers.items()}
+
+    agree_k2 = _agreement(exact, per_pair, da.mask)
+    agree_fast = _agreement(fast, exact, da.mask)
+    orb_plain = hamming._quarter(k1.match_batch_fused_plain(
+        Descriptors(oa.packed, oa.mask), Descriptors(ob.packed, ob.mask),
+        ratio=hamming._ratio_sqrt(0.8), fast=True, const_sq_norm=256.0, binary=True))
+    orb_identical = (torch_all(orb_m.valid == orb_plain.valid)
+                     and torch_all(orb_m.dist == orb_plain.dist)
+                     and torch_all(orb_m.idx == orb_plain.idx))
+    ties, orb_ties_only = _column_ties_only(orb_m, anchor, oa, ob)
+    valid = {k: m.valid.sum(-1).tolist() for k, m in
+             (("sift_exact", exact), ("sift_fast", fast), ("orb", orb_m))}
+    stats = dict(pairs=CONFIG2_PAIRS, frame=list(SMOKE_SCENE["image_size"]),
+                 sift_live=[int(d.mask.sum()) for d in sift],
+                 orb_live=[int(d.mask.sum()) for d in orb],
+                 k1_exact_vs_k2_agreement=agree_k2, k1_fast_vs_exact_agreement=agree_fast,
+                 orb_identical_to_plain=orb_identical,
+                 orb_vs_popcount_column_ties=ties, orb_vs_popcount_ties_only=orb_ties_only,
+                 valid_per_pair=valid,
+                 stage_seconds=secs, launches=launches)
+    log("config2_images", json.dumps(stats))
+    if agree_k2 < 0.999 or agree_fast < 0.99 or not orb_identical or not orb_ties_only:
+        raise AssertionError(f"config-2 image phase: K1 vs K2 {agree_k2}, fast {agree_fast}, "
+                             f"ORB identical to plain {orb_identical}, differences from "
+                             f"popcount only at column ties {orb_ties_only}")
+    for k, counts in valid.items():
+        if min(counts) <= 0:
+            raise AssertionError(f"config-2 image phase: a pair without {k} matches: {counts}")
+    for k, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the config-2 path")
+    return launches
+
+
+def main_path(scene, views):
     """reconstruct(images=...) on the smoke scene at the default config."""
     import numpy as np
     import torch
@@ -330,11 +695,9 @@ def main_path():
     from fastmatch_tpu_torch.pipeline.reconstruct import reconstruct
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
-    t0 = time.perf_counter()
-    scene, views = render_smoke_scene()
-    log(f"rendered {len(views)} frames in {time.perf_counter() - t0:.1f} s")
     wrappers = {"distance_topk": k2.distance_topk, "gather_patches": k3.gather_patches,
-                "sorted_segment_sum": k4.sorted_segment_sum}
+                "sorted_segment_sum": k4.sorted_segment_sum,
+                "sorted_gather_rows": k4.sorted_gather_rows}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
@@ -389,15 +752,27 @@ def main() -> int:
             line.strip() for line in _build.ptxas_report(name).splitlines()
             if "registers" in line or "spill" in line))
 
+    phase_s = {"build": build_s}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     rng = np.random.default_rng(0)
     entries = {}
     details = {}
     for name, fn in (("distance_topk", check_k2), ("gather_patches", check_k3),
-                     ("sorted_segment_sum", check_k4)):
-        entries[name], details[name] = fn(rng)
+                     ("sorted_segment_sum", check_k4), ("batch_match", check_k1),
+                     ("sorted_gather_rows", check_k5)):
+        entries[name], details[name] = phase(f"check_{name}", fn, rng)
 
-    small_reference()
-    launches = main_path()
+    phase("small_reference", small_reference)
+    scene, views = phase("render", render_smoke_scene)
+    launches = phase("config2_images", config2_images, views)
+    launches.update(phase("main_path", main_path, scene, views))
+    log("phase_seconds", json.dumps(phase_s))
 
     meta = {
         "distance_topk": ("src/fastmatch_tpu_torch/csrc/distance_topk.cu",
@@ -406,6 +781,10 @@ def main() -> int:
                            "src/fastmatch_tpu/kernels/patch_gather.py:117"),
         "sorted_segment_sum": ("src/fastmatch_tpu_torch/csrc/segment_sum.cu",
                                "src/fastmatch_tpu/kernels/segment_ops.py:133"),
+        "batch_match": ("src/fastmatch_tpu_torch/csrc/batch_match.cu",
+                        "src/fastmatch_tpu/kernels/batch_match.py:348"),
+        "sorted_gather_rows": ("src/fastmatch_tpu_torch/csrc/gather_rows.cu",
+                               "src/fastmatch_tpu/kernels/segment_ops.py:201"),
     }
     kernels = []
     for name, e in entries.items():
@@ -414,7 +793,8 @@ def main() -> int:
                             launches=launches[name], **e))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_details.json"), "w") as fh:
-        json.dump(dict(kernels=kernels, checks=details, nvidia_smi=smi), fh, indent=1)
+        json.dump(dict(kernels=kernels, checks=details, phase_seconds=phase_s,
+                       nvidia_smi=smi), fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

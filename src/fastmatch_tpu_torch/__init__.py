@@ -2,10 +2,10 @@
 
 The package mirrors ``fastmatch_tpu``'s layout and public names (``core/``,
 ``features/``, ``matching/``, ``geometry/``, ``ba/``, ``kernels/``,
-``pipeline/``, ``utils/``). Plain tensor code is PyTorch; the three TPU
-kernels on the incremental-SfM path (fused distance/top-2, patch gather,
-sorted segment sum) are CUDA C++ kernels under ``csrc/``, built with
-``nvcc`` for ``sm_90a`` at first use. Entry points take a ``device``
+``pipeline/``, ``utils/``). Plain tensor code is PyTorch; the five TPU
+kernels (batched fused matcher, fused distance/top-2, patch gather, sorted
+segment sum, sorted row gather) are CUDA C++ kernels under ``csrc/``, built
+with ``nvcc`` for ``sm_90a`` at first use. Entry points take a ``device``
 argument and run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper takes its plain PyTorch version.
 
@@ -26,17 +26,23 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from fastmatch_tpu_torch.ba.lm import ba_solve  # noqa: E402
-from fastmatch_tpu_torch.core.containers import Descriptors, Keypoints, Matches  # noqa: E402
-from fastmatch_tpu_torch.features.sift import detect_and_describe  # noqa: E402
+from fastmatch_tpu_torch.core.containers import (  # noqa: E402
+    BinaryDescriptors, Descriptors, Keypoints, Matches)
+from fastmatch_tpu_torch.features.orb import ORBConfig, detect_and_describe_orb  # noqa: E402
+from fastmatch_tpu_torch.features.sift import SIFTConfig, detect_and_describe  # noqa: E402
 from fastmatch_tpu_torch.geometry.homography import select_two_view_model  # noqa: E402
 from fastmatch_tpu_torch.geometry.pnp import ransac_pnp  # noqa: E402
 from fastmatch_tpu_torch.geometry.ransac import ransac_essential  # noqa: E402
-from fastmatch_tpu_torch.matching.matcher import match_pair  # noqa: E402
+from fastmatch_tpu_torch.matching.hamming import (  # noqa: E402
+    match_batch_hamming, match_pair_hamming)
+from fastmatch_tpu_torch.matching.matcher import match_batch, match_pair  # noqa: E402
 from fastmatch_tpu_torch.pipeline.config import PipelineConfig  # noqa: E402
 from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction, reconstruct  # noqa: E402
 
 __all__ = [
-    "Descriptors", "Keypoints", "Matches", "PipelineConfig", "Reconstruction",
-    "ba_solve", "detect_and_describe", "match_pair", "ransac_essential", "ransac_pnp",
-    "reconstruct", "select_two_view_model",
+    "BinaryDescriptors", "Descriptors", "Keypoints", "Matches", "ORBConfig",
+    "PipelineConfig", "Reconstruction", "SIFTConfig", "ba_solve", "detect_and_describe",
+    "detect_and_describe_orb", "match_batch", "match_batch_hamming", "match_pair",
+    "match_pair_hamming", "ransac_essential", "ransac_pnp", "reconstruct",
+    "select_two_view_model",
 ]

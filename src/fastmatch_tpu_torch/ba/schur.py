@@ -8,7 +8,10 @@ product. Every reduction over the observation table goes through
 (``kernels/segment_ops.sorted_segment_sum``), which needs sorted keys:
 point keys are sorted by ``ba_solve``; camera keys are put in order by one
 stable sort per solve (``segment_keys``), and camera-keyed values are
-permuted into that order before each sum. The grouped layout waits.
+permuted into that order before each sum. The point-keyed row gathers go
+through the K5 kernel wrapper (``kernels/segment_ops.sorted_gather_rows``,
+an exact copy); camera-keyed gathers stay plain indexing. The grouped
+layout waits.
 """
 
 from __future__ import annotations
@@ -18,18 +21,21 @@ from typing import NamedTuple
 import torch
 
 from fastmatch_tpu_torch.core.lie import hat
-from fastmatch_tpu_torch.kernels.segment_ops import sorted_segment_sum
+from fastmatch_tpu_torch.kernels.segment_ops import sorted_gather_rows, sorted_segment_sum
 
 
 class SegmentKeys(NamedTuple):
     """Sorted reduction keys of one observation table, built once per
     solve. ``*_perm`` is the stable permutation that sorts the table's rows
-    by that key, or None when the table is already in that order."""
+    by that key, or None when the table is already in that order.
+    ``pt_rows`` is each row's point key in the table's own order (``pt``
+    itself once ``ba_solve`` has sorted the table by point)."""
 
     pt: torch.Tensor
     pt_perm: torch.Tensor | None
     cam: torch.Tensor
     cam_perm: torch.Tensor | None
+    pt_rows: torch.Tensor
 
 
 def segment_keys(obs) -> SegmentKeys:
@@ -41,7 +47,8 @@ def segment_keys(obs) -> SegmentKeys:
 
     pt, pt_perm = one(obs.pt_idx)
     cam, cam_perm = one(obs.cam_idx)
-    return SegmentKeys(pt, pt_perm, cam, cam_perm)
+    pt_rows = pt if pt_perm is None else obs.pt_idx.to(torch.int32).contiguous()
+    return SegmentKeys(pt, pt_perm, cam, cam_perm, pt_rows)
 
 
 def _project(p):
@@ -50,12 +57,15 @@ def _project(p):
     return p[..., :2] / z
 
 
-def residuals_and_jacobians(poses, points, obs, huber_delta: float | None = None):
+def residuals_and_jacobians(poses, points, obs, huber_delta: float | None = None,
+                            keys: SegmentKeys | None = None):
     """Per-observation residuals (O, 2), Jacobians Jc (O, 2, 6), Jp
     (O, 2, 3) and weights w (O,) folding mask, cheirality and Huber IRLS."""
+    if keys is None:
+        keys = segment_keys(obs)
     Rc = _gather_rows(poses.R, obs.cam_idx)
     tc = _gather_rows(poses.t, obs.cam_idx)
-    X = _gather_rows(points, obs.pt_idx)
+    X = _gather_pt(points, keys)
     p = torch.einsum("oij,oj->oi", Rc, X) + tc
     res = _project(p) - obs.uv
     z = torch.where(p[:, 2].abs() < 1e-9, torch.full_like(p[:, 2], 1e-9), p[:, 2])
@@ -107,15 +117,21 @@ def _seg_sum_cam(vals, keys: SegmentKeys, n):
 
 
 def _gather_rows(table, idx):
-    """table[idx] (plain indexing, as in the JAX package)."""
+    """table[idx] (plain indexing, as in the JAX package): camera keys."""
     return table[idx]
+
+
+def _gather_pt(table, keys: SegmentKeys):
+    """(P, 3) table rows by each observation's point key, through the K5
+    kernel wrapper (``ba_solve`` sorts the observation table by point)."""
+    return sorted_gather_rows(table.contiguous(), keys.pt_rows)
 
 
 def assemble(poses, points, obs, n_cams, n_points, huber_delta=None, keys=None):
     """Block normal equations and cost at (poses, points)."""
     if keys is None:
         keys = segment_keys(obs)
-    res, Jc, Jp, w = residuals_and_jacobians(poses, points, obs, huber_delta)
+    res, Jc, Jp, w = residuals_and_jacobians(poses, points, obs, huber_delta, keys)
     wv = w[:, None, None]
     Hcc = _seg_sum_cam(torch.einsum("oki,okj->oij", Jc * wv, Jc), keys, n_cams)
     Hpp = _seg_sum_pt(torch.einsum("oki,okj->oij", Jp * wv, Jp), keys, n_points)
@@ -167,7 +183,7 @@ def schur_matvec(sys: BlockSystem, obs, lam, x, n_points, cam_update_mask,
     yo = torch.einsum("oij,oi->oj", sys.Wcp, _gather_rows(x, obs.cam_idx))
     yp = _seg_sum_pt(yo, keys, n_points)
     zp = torch.einsum("pij,pj->pi", Hpp_inv, yp)
-    wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_rows(zp, obs.pt_idx))
+    wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_pt(zp, keys))
     wc = _seg_sum_cam(wo, keys, x.shape[0])
     Sx = torch.einsum("cij,cj->ci", _damped(sys.Hcc, lam), x) - wc
     return Sx * cam_update_mask[:, None]
@@ -179,7 +195,7 @@ def reduced_rhs(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
     if Hpp_inv is None:
         Hpp_inv = damped_pp_inverse(sys, lam)
     zp = torch.einsum("pij,pj->pi", Hpp_inv, sys.gp)
-    wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_rows(zp, obs.pt_idx))
+    wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_pt(zp, keys))
     wc = _seg_sum_cam(wo, keys, sys.gc.shape[0])
     return (sys.gc - wc) * cam_update_mask[:, None]
 

@@ -4,6 +4,10 @@ The port keeps the JAX package's convention (``fastmatch_tpu/core/
 containers.py``): every ragged collection is stored at a fixed capacity
 with a boolean ``mask`` of live entries; padded descriptor rows are zero and
 every reduction over the capacity axis is mask-aware.
+
+Packed binary descriptors hold their ``uint32`` words in an ``int32`` tensor
+with the same bits (``numpy.view``): PyTorch lacks shift and sum kernels for
+``uint32`` on some builds, so packing and unpacking go through ``int64``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,22 @@ class Descriptors(NamedTuple):
     mask: torch.Tensor
 
 
+class BinaryDescriptors(NamedTuple):
+    """packed (C, W) int32 holding uint32 words (bit i of word w is test
+    32*w + i; padded rows all-zero); mask (C,) bool. Leading batch axes are
+    allowed."""
+
+    packed: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def n_bits(self) -> int:
+        return self.packed.shape[-1] * 32
+
+    def count(self) -> torch.Tensor:
+        return self.mask.sum(-1)
+
+
 class Matches(NamedTuple):
     """One row per A-slot: idx (C,) int32 into B, dist (C,) float32 squared
     L2 (BIG where invalid), valid (C,) bool."""
@@ -68,3 +88,36 @@ def descriptors_from_numpy(desc: np.ndarray, capacity: int = DEFAULT_CAPACITY,
     data, mask = pad_to_capacity(desc.astype(np.float32), capacity)
     return Descriptors(torch.from_numpy(data).to(device),
                        torch.from_numpy(mask).to(device))
+
+
+def unpack_bits_signed(packed: torch.Tensor, mask: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
+    """(..., W) packed words -> (..., 32*W) ``dtype`` in {-1, +1}; rows where
+    ``mask`` is False unpack to zeros."""
+    shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
+    bits = (packed.to(torch.int64)[..., None] >> shifts) & 1      # (..., W, 32)
+    signed = (2 * bits - 1).to(dtype).reshape(*packed.shape[:-1], packed.shape[-1] * 32)
+    return torch.where(mask[..., None], signed, torch.zeros((), dtype=dtype,
+                                                            device=packed.device))
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 32*W) bool/0-1 bits -> (..., W) int32 tensor of uint32 words."""
+    if bits.shape[-1] % 32:
+        raise ValueError(f"bit count must be a multiple of 32, got {bits.shape[-1]}")
+    w = bits.shape[-1] // 32
+    grouped = bits.to(torch.int64).reshape(*bits.shape[:-1], w, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (grouped << shifts).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def binary_descriptors_from_numpy(packed: np.ndarray, capacity: int = DEFAULT_CAPACITY,
+                                  device="cpu") -> BinaryDescriptors:
+    """Build a padded BinaryDescriptors container from a host (N, W) uint32
+    array."""
+    if packed.ndim != 2 or packed.dtype != np.uint32:
+        raise ValueError(f"expected (N, W) uint32 packed bits, got {packed.shape} {packed.dtype}")
+    data, mask = pad_to_capacity(packed, capacity)
+    return BinaryDescriptors(torch.from_numpy(data.view(np.int32)).to(device),
+                             torch.from_numpy(mask).to(device))

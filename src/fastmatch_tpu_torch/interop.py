@@ -16,14 +16,16 @@ import torch
 
 from fastmatch_tpu_torch.ba.problem import BAProblem, Observations
 from fastmatch_tpu_torch.core.camera import Pinhole
-from fastmatch_tpu_torch.core.containers import Descriptors, descriptors_from_numpy
+from fastmatch_tpu_torch.core.containers import (BinaryDescriptors, Descriptors,
+                                                 descriptors_from_numpy, pad_to_capacity)
 from fastmatch_tpu_torch.core.lie import SE3
 from fastmatch_tpu_torch.features.sift import SIFTConfig
 from fastmatch_tpu_torch.pipeline import config as _config
 from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
 
 __all__ = [
-    "descriptors_from_numpy", "descriptors_from_arrays", "ba_problem_from_numpy",
+    "descriptors_from_numpy", "descriptors_from_arrays", "batched_descriptors_from_numpy",
+    "binary_descriptors_from_arrays", "ba_problem_from_numpy",
     "config_from", "reconstruction_from_numpy",
     "reconstruction_to_numpy",
 ]
@@ -46,6 +48,23 @@ def descriptors_from_arrays(data, mask, device="cpu") -> Descriptors:
     """Descriptors from a (C, D) float array and its (C,) mask as given
     (no re-padding)."""
     return Descriptors(_t(data, device, torch.float32), _t(mask, device, torch.bool))
+
+
+def batched_descriptors_from_numpy(descs, capacity: int, device="cpu") -> Descriptors:
+    """Batched Descriptors (B, capacity, D) from a list of (N_i, D) float
+    arrays, each padded to ``capacity`` (truncated above it) as
+    ``descriptors_from_numpy`` pads one set."""
+    padded = [pad_to_capacity(np.asarray(d, np.float32), capacity) for d in descs]
+    return descriptors_from_arrays(np.stack([d for d, _ in padded]),
+                                   np.stack([m for _, m in padded]), device)
+
+
+def binary_descriptors_from_arrays(packed, mask, device="cpu") -> BinaryDescriptors:
+    """BinaryDescriptors from a (..., C, W) uint32 array and its (..., C)
+    mask as given; the words are held in an int32 tensor with the same
+    bits."""
+    words = np.ascontiguousarray(packed, dtype=np.uint32).view(np.int32)
+    return BinaryDescriptors(_t(words, device), _t(mask, device, torch.bool))
 
 
 def ba_problem_from_numpy(R, t, points, cam_idx, pt_idx, uv, obs_mask, cam_mask,

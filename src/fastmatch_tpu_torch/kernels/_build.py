@@ -21,11 +21,12 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("distance_topk", "patch_gather", "segment_sum")
+SOURCES = ("batch_match", "distance_topk", "gather_rows", "patch_gather", "segment_sum")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict = {}
+_entries: dict = {}
 _lock = threading.Lock()
 
 
@@ -90,6 +91,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, with its argument
+    types and its ``int`` (cudaError_t) result declared once, not per call."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entries[symbol] = fn
+    return fn
+
+
 def ptxas_report(name: str) -> str:
     """What ``-Xptxas -v`` printed for the last build of ``name``."""
     path = os.path.join(BUILD_DIR, f"{name}.log")
@@ -102,11 +115,13 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device address, for a ``c_void_p`` argument."""
+    return t.data_ptr()
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The current CUDA stream of a tensor's device, for a ``c_void_p``."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch.cuda.current_stream(t.device).cuda_stream

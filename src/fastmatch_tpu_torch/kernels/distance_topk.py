@@ -26,17 +26,18 @@ from fastmatch_tpu_torch.matching.matcher import BIG
 _TN = 32          # query rows per block (csrc/distance_topk.cu)
 _TM = 64          # bank columns per tile
 _TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9
 
 
-def _plain_top2(srow: torch.Tensor):
-    """Row-wise (v1, i1, v2) with the lowest index winning ties, as the
-    kernels reduce (min, then the minimum index attaining it)."""
-    m = srow.shape[1]
+def plain_top2(srow: torch.Tensor):
+    """(v1, i1, v2) over the last axis with the lowest index winning ties,
+    as the kernels (K1, K2) reduce: min, then the lowest index attaining it."""
+    m = srow.shape[-1]
     col = torch.arange(m, device=srow.device)
-    v1 = srow.min(dim=1, keepdim=True).values
-    i1 = torch.where(srow == v1, col, m).min(dim=1, keepdim=True).values
-    v2 = torch.where(col == i1, BIG, srow).min(dim=1, keepdim=True).values
-    return v1[:, 0], i1[:, 0], v2[:, 0]
+    v1 = srow.min(dim=-1, keepdim=True).values
+    i1 = torch.where(srow == v1, col, m).min(dim=-1, keepdim=True).values
+    v2 = torch.where(col == i1, BIG, srow).min(dim=-1, keepdim=True).values
+    return v1[..., 0], i1[..., 0], v2[..., 0]
 
 
 def distance_topk_plain(a, b, b2m, a2m, fast: bool = False):
@@ -45,7 +46,7 @@ def distance_topk_plain(a, b, b2m, a2m, fast: bool = False):
         a = a.to(torch.bfloat16).float()
         b = b.to(torch.bfloat16).float()
     neg2 = -2.0 * (a @ b.T)
-    v1, i1, v2 = _plain_top2(neg2 + b2m[None, :])
+    v1, i1, v2 = plain_top2(neg2 + b2m[None, :])
     d1 = torch.clamp(v1 + a2m, min=0.0)
     d2 = torch.clamp(v2 + a2m, min=0.0)
     scol = neg2 + a2m[:, None]
@@ -79,11 +80,7 @@ def distance_topk(a, b, b2m, a2m, fast: bool = False):
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     _check_inputs(a, b, b2m, a2m)
-    lib = _build.load("distance_topk")
-    fn = lib.fm_distance_topk
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 8 + [ctypes.c_void_p])
+    fn = _build.entry("distance_topk", "fm_distance_topk", _ARGTYPES)
     n, d = a.shape
     m = b.shape[0]
     row_blocks = -(-n // _TN)

@@ -15,6 +15,8 @@ import torch
 
 from fastmatch_tpu_torch.kernels import _build
 
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+
 
 def gather_patches_plain(stack: torch.Tensor, lyx: torch.Tensor, patch: int):
     """Plain PyTorch version: (L, H, W) stack, (K, 3) int (level, y, x)
@@ -45,10 +47,7 @@ def gather_patches(stack: torch.Tensor, lyx: torch.Tensor, patch: int):
         raise ValueError(f"lyx must be contiguous (K, 3) int32 on {stack.device}")
     K = lyx.shape[0]
     out = torch.empty((K, patch, patch), dtype=torch.float32, device=stack.device)
-    fn = _build.load("patch_gather").fm_gather_patches
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_void_p]
+    fn = _build.entry("patch_gather", "fm_gather_patches", _ARGTYPES)
     P = _build.ptr
     rc = fn(P(stack), P(lyx), K, L, H, W, patch, P(out), _build.stream_of(stack))
     _build.check(rc, "gather_patches")

@@ -4,6 +4,9 @@ Port of ``fastmatch_tpu/matching/matcher.py``. ``match_pair_plain`` mirrors
 ``match_pair_jnp`` op for op and is the parity anchor of the port;
 ``match_pair`` dispatches by device: on ``cuda`` to the fused kernel
 (``kernels/distance_topk.py``), on ``cpu`` to the plain version.
+``match_batch`` matches B pairs at once: banks of up to ``MAX_RESIDENT_M``
+rows go to the batched kernel (``kernels/batch_match.py``), larger ones to a
+loop of ``match_pair``, the JAX package's dispatch rule.
 
 Conventions: distances are squared L2; the ratio test is
 ``d1 < ratio^2 * d2`` with a real second neighbour required (``d2 < BIG``);
@@ -67,8 +70,7 @@ def match_pair(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
     "fast" (bf16 inputs, fp32 accumulation).
     """
     dev = resolve_device(device)
-    desc_a = Descriptors(desc_a.data.to(dev), desc_a.mask.to(dev))
-    desc_b = Descriptors(desc_b.data.to(dev), desc_b.mask.to(dev))
+    desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
     if backend == "auto":
         backend = "kernel" if dev.type == "cuda" else "plain"
     if backend == "plain":
@@ -79,3 +81,43 @@ def match_pair(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
         return match_pair_fused(desc_a, desc_b, ratio=ratio,
                                 cross_check=cross_check, precision=precision)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def _to(desc: Descriptors, dev) -> Descriptors:
+    return Descriptors(desc.data.to(dev), desc.mask.to(dev))
+
+
+def stack_matches(ms) -> Matches:
+    return Matches(*(torch.stack(f) for f in zip(*ms)))
+
+
+def match_batch(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
+                cross_check: bool = True, backend: str = "auto",
+                precision: str = "exact", device=None) -> Matches:
+    """Batched matcher: containers carry a leading batch axis (B, C, ...).
+
+    backend: "auto" (the kernels on cuda, the plain version on cpu; the JAX
+    package's default is its plain "jnp"), "plain" (a loop of
+    ``match_pair_plain``), or "kernel": banks of at most ``MAX_RESIDENT_M``
+    rows go to the batched kernel K1 in one launch, larger banks to a loop
+    of ``match_pair`` on the per-pair kernel K2. precision (kernel backend
+    only): "exact" or "fast" (bf16 operands, value-based mutual check in K1).
+    """
+    from fastmatch_tpu_torch.kernels.batch_match import MAX_RESIDENT_M, match_batch_fused
+
+    if precision not in ("exact", "fast"):
+        raise ValueError(f"precision must be 'exact' or 'fast', got {precision!r}")
+    dev = resolve_device(device)
+    desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
+    if backend == "auto":
+        backend = "kernel" if dev.type == "cuda" else "plain"
+    if backend not in ("plain", "kernel"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "kernel" and desc_b.data.shape[-2] <= MAX_RESIDENT_M:
+        return match_batch_fused(desc_a, desc_b, ratio=ratio, cross_check=cross_check,
+                                 fast=precision == "fast")
+    return stack_matches(
+        match_pair(Descriptors(da, ma), Descriptors(db, mb), ratio=ratio,
+                   cross_check=cross_check, backend=backend, precision=precision,
+                   device=dev)
+        for da, ma, db, mb in zip(desc_a.data, desc_a.mask, desc_b.data, desc_b.mask))

@@ -1,9 +1,9 @@
-"""Trajectory ATE after sim(3) (Umeyama) alignment.
+"""Trajectory ATE after sim(3) (Umeyama) alignment, and matcher agreement.
 
-Port of ``fastmatch_tpu/utils/evaluation.py``'s ``align_umeyama`` and
-``ate_rmse``: monocular reconstructions are defined up to a similarity, so
-camera centres are aligned to ground truth before the RMSE. The match
-precision/recall harness waits.
+Port of ``fastmatch_tpu/utils/evaluation.py``'s ``align_umeyama``,
+``ate_rmse`` and ``match_agreement``: monocular reconstructions are defined
+up to a similarity, so camera centres are aligned to ground truth before
+the RMSE. The match precision/recall harness waits.
 """
 
 from __future__ import annotations
@@ -37,3 +37,16 @@ def ate_rmse(est_centers, gt_centers) -> torch.Tensor:
     s, R, t = align_umeyama(est, gt)
     aligned = s * est @ R.T + t
     return torch.sqrt(((aligned - gt) ** 2).sum(-1).mean())
+
+
+def match_agreement(idx_a, valid_a, idx_b, valid_b, mask=None) -> torch.Tensor:
+    """Fraction of query slots where two matchers made the same decision
+    (the >= 99% gate between backends): both invalid counts as agreement,
+    both valid requires equal indices. ``mask`` restricts the average to
+    live query slots."""
+    both_valid = valid_a & valid_b
+    agree = torch.where(both_valid, idx_a == idx_b, ~(valid_a ^ valid_b)).float()
+    if mask is None:
+        return agree.mean()
+    w = mask.float()
+    return (agree * w).sum() / torch.clamp(w.sum(), min=1.0)

@@ -1,6 +1,9 @@
 """The port's bundle adjustment (fastmatch_tpu_torch, CPU) against the JAX
-package's, and the K4 segment sum's plain version against the TPU kernel
-(``sorted_segment_sum(interpret=True)``) and ``jax.ops.segment_sum``.
+package's, the K4 segment sum's plain version against the TPU kernel
+(``sorted_segment_sum(interpret=True)``) and ``jax.ops.segment_sum``, and
+the K5 row gather's plain version against ``sorted_gather_rows(interpret=True)``
+(rtol/atol 1e-5: the TPU kernel rebuilds each value from bf16 hi/lo parts)
+and, exactly, against ``table[seg]``.
 
 Tolerances, with reasons: segment sums of float32 rows agree to 1e-4
 absolute on unit-scale data (the frameworks add the rows of a segment in
@@ -21,6 +24,7 @@ from fastmatch_tpu.ba import schur as jschur
 from fastmatch_tpu.ba.problem import BAProblem as JProblem
 from fastmatch_tpu.ba.problem import Observations as JObs
 from fastmatch_tpu.core.lie import SE3 as JSE3
+from fastmatch_tpu.kernels.segment_ops import sorted_gather_rows as j_gather_rows
 from fastmatch_tpu.kernels.segment_ops import sorted_segment_sum as j_segsum
 from fastmatch_tpu.pipeline import tracker as jtracker
 from synth import SyntheticScene
@@ -118,6 +122,55 @@ def test_segment_sum_drops_out_of_range_keys(rng):
     out = k4.segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(seg), 32)
     ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=32))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+# -- K5: the row gather ------------------------------------------------------------
+
+
+def test_gather_rows_vs_tpu_kernel(rng):
+    # tests/test_segment_ops.py's shape: 8192 sorted keys into 2048 rows x 6.
+    O, P = 8192, 2048
+    table = rng.standard_normal((P, 6)).astype(np.float32)
+    seg = np.sort(rng.integers(0, P, O)).astype(np.int32)
+    ref = np.asarray(j_gather_rows(jnp.asarray(table), jnp.asarray(seg), interpret=True))
+    before = k4.sorted_gather_rows.launches
+    out = k4.sorted_gather_rows(torch.from_numpy(table), torch.from_numpy(seg))
+    assert k4.sorted_gather_rows.launches == before  # CPU: the plain version
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(out.numpy(), table[seg])
+
+
+def test_gather_rows_out_of_range_keys_are_zero(rng):
+    # The TPU kernel's one-hot product gives zero rows for keys it cannot
+    # place; the port's gather does the same instead of reading outside.
+    table = rng.standard_normal((40, 3)).astype(np.float32)
+    seg = np.array([-2, 0, 5, 39, 40, 1000], np.int32)
+    out = k4.gather_rows_plain(torch.from_numpy(table), torch.from_numpy(seg)).numpy()
+    np.testing.assert_array_equal(out[[1, 2, 3]], table[[0, 5, 39]])
+    assert (out[[0, 4, 5]] == 0).all()
+
+
+def test_ba_solve_through_k5_is_bit_identical(monkeypatch):
+    """The point-keyed gathers now go through the K5 wrapper; on the CPU
+    ``ba_solve`` gives bit for bit what plain indexing gave."""
+    arrs = problem_arrays(seed=3, outliers=25, shuffle=True)
+    kw = dict(max_iters=10, pcg_iters=30, huber_delta_static=2.0 / 500.0)
+    calls = []
+    real = tschur.sorted_gather_rows
+
+    def spy(table, seg):
+        calls.append(tuple(table.shape))
+        return real(table, seg)
+
+    monkeypatch.setattr(tschur, "sorted_gather_rows", spy)
+    new = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
+    assert len(calls) > 3 and all(c[1] == 3 for c in calls)
+    monkeypatch.setattr(tschur, "sorted_gather_rows", lambda table, seg: table[seg.long()])
+    old = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
+    for a, b in ((new.poses.R, old.poses.R), (new.poses.t, old.poses.t),
+                 (new.points, old.points), (new.cost, old.cost), (new.cost0, old.cost0)):
+        assert torch.equal(a, b)
+    assert (new.iters, new.accepted) == (old.iters, old.accepted)
 
 
 # -- Schur pieces and the LM solve ------------------------------------------------

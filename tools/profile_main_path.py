@@ -33,7 +33,7 @@ sys.path.insert(0, ROOT)
 
 # The port's kernels by their CUDA function names (csrc/).
 PORT_KERNELS = {"topk_tiles": "K2", "topk_finalize": "K2", "gather_patches_kernel": "K3",
-                "segsum_sorted": "K4"}
+                "segsum_sorted": "K4", "gather_rows": "K5"}
 
 
 def _union_us(intervals):
