@@ -13,8 +13,11 @@ Phases, in order; any failure exits nonzero before the result line:
    exact, fast and packed binary, and fast at 256 pairs), K2 (fused
    distance/top-2/column argmin) at 2048x2048 and 2048x8192 in exact and
    fast mode, K3 (patch gather) at the orientation and descriptor patch
-   shapes of a 640x480 frame, K4 (sorted segment sum) and K5 (sorted row
-   gather) at the bundle adjustment's shapes;
+   shapes of a 640x480 frame, K4 (sorted segment sum, both variants) at
+   each width the bundle adjustment sums and at its edge cases, and K5
+   (sorted row gather) at the bundle adjustment's shapes; K4's and K5's
+   device time per launch by ``torch.profiler``, and the host time of each
+   step of their wrappers;
 4. a small-input reference: ``reconstruct`` from synthetic features on the
    card and on the CPU, both held to the JAX package's ATE gate;
 5. the config-2 path from images: SIFT and ORB on 33 rendered 640x480
@@ -58,6 +61,10 @@ PEAK_BYTES = 3.35e12         # HBM3
 CONFIG2 = dict(batch=64, capacity=2048, live=1500, big_batch=256)
 CONFIG2_PAIRS = 32  # consecutive frame pairs of the smoke scene
 K1_MIN_VALID = 1000  # valid matches a gated K1 comparison needs
+# Calls per CUDA-event batch for K4 and K5, whose wrapper calls are
+# host-bound: enough that a batch measures the host's steady call rate, not
+# its wake-up from the previous batch's synchronise.
+HOST_REPS = 100
 DEV = "cuda"        # the device of the config-2 checks and phase
 
 
@@ -103,6 +110,21 @@ def cuda_ms(fn, batches=7, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def host_us(fn, n=10_000):
+    """Mean host microseconds per call of ``fn`` over ``n`` back-to-back
+    calls by ``time.perf_counter_ns``, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n / 1e3
 
 
 def bound(n_bytes, n_ops=0.0, peak_ops=PEAK_FP32_FLOPS):
@@ -258,6 +280,11 @@ def check_k1(rng):
     rec = timed("exact", lambda: k1.match_batch_fused(da, db),
                 lambda: k1.match_batch_fused_plain(da, db), ex_bound, B,
                 "fp32 CUDA cores, 67e12 FLOP/s")
+    # Device time of one call (tiles and finalize launches) by the profiler.
+    mean_us, seen = device_us(lambda: k1.match_batch_fused(da, db),
+                              {"batch_match_tiles", "batch_match_finalize"}, n=20)
+    record(dict(mode="exact", batch=B, device_us_per_call=mean_us * seen / 20
+                if seen else None, profiled_launches=seen), True, "")
     timed("fast", lambda: k1.match_batch_fused(da, db, fast=True),
           lambda: k1.match_batch_fused_plain(da, db, fast=True),
           k1_bound(da.mask, db.mask, 2 * d, 2 * d, PEAK_BF16_FLOPS), B,
@@ -326,34 +353,81 @@ def check_k1(rng):
     return entry, details
 
 
+def kernel_short_name(name):
+    """A demangled CUDA kernel name without return type, namespace,
+    template arguments or signature: ``"void (anonymous
+    namespace)::segsum_short<3>(float const*, ...)"`` -> ``"segsum_short"``."""
+    head = name.split("(anonymous namespace)::")[-1].split("(")[0]
+    return head.split("<")[0].split("::")[-1].split(" ")[-1]
+
+
+def device_us(fn, names, n=300):
+    """Mean device microseconds per launch of the kernels called ``names``
+    (``kernel_short_name``) over ``n`` calls of ``fn`` under torch.profiler,
+    and the number of such launches it saw; (None, 0) if it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.events():
+        if (getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and kernel_short_name(ev.name) in names):
+            total += ev.time_range.end - ev.time_range.start
+            count += 1
+    return (total / count if count else None), count
+
+
 def check_k5(rng):
     """K5 at the smoke map's BA shape: 17788 sorted point keys into an
-    8192-row table of 3 columns (the points and the PCG's zp); bit-equal to
-    ``table[seg]``."""
+    8192-row table of 3 columns (the points and the PCG's zp; one thread per
+    row), and of 6 columns (the 2-D mapping); bit-equal to ``table[seg]``,
+    into a new tensor and into a given buffer. Timed as BA calls it (into
+    its buffer) beside ``torch.index_select`` into a buffer, in the same
+    run; both also into new tensors."""
     import numpy as np
     import torch
 
     from fastmatch_tpu_torch.kernels import segment_ops as k5
 
     dev = torch.device(DEV)
-    O, N, used, D = 17788, 8192, 5025, 3
+    O, N, used = 17788, 8192, 5025
     seg = torch.from_numpy(np.sort(rng.integers(0, used, O)).astype(np.int32)).to(dev)
-    table = torch.randn((N, D), device=dev)
-    got = k5.sorted_gather_rows(table, seg)
-    equal = bool(torch.equal(got, table[seg.long()]))
-    ms = cuda_ms(lambda: k5.sorted_gather_rows(table, seg))
-    plain_ms = cuda_ms(lambda: k5.gather_rows_plain(table, seg))
-    library_ms = cuda_ms(lambda: torch.index_select(table, 0, seg))
     distinct = int(torch.unique(seg).numel())
-    b_ms, b_by = bound(4 * (O + O * D + distinct * D))
-    d = dict(rows=O, table=[N, D], distinct_keys=distinct, bit_equal=equal, ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-    log("K5", json.dumps(d))
-    if not equal:
-        raise AssertionError("K5 differs from table[seg]")
-    entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=library_ms)
-    return entry, [d]
+    details, entry = [], None
+    for D in (3, 6):
+        table = torch.randn((N, D), device=dev)
+        buf, lib_buf = table.new_empty((O, D)), table.new_empty((O, D))
+        ref = table[seg.long()]
+        equal = (bool(torch.equal(k5.sorted_gather_rows(table, seg), ref))
+                 and bool(torch.equal(k5.sorted_gather_rows(table, seg, out=buf), ref)))
+        ms = cuda_ms(lambda: k5.sorted_gather_rows(table, seg, out=buf), reps=HOST_REPS)
+        library_ms = cuda_ms(lambda: torch.index_select(table, 0, seg, out=lib_buf),
+                             reps=HOST_REPS)
+        ms_new = cuda_ms(lambda: k5.sorted_gather_rows(table, seg), reps=HOST_REPS)
+        library_ms_new = cuda_ms(lambda: torch.index_select(table, 0, seg), reps=HOST_REPS)
+        plain_ms = cuda_ms(lambda: k5.gather_rows_plain(table, seg), reps=HOST_REPS)
+        dev_us, seen = device_us(lambda: k5.sorted_gather_rows(table, seg, out=buf),
+                                 {"gather_rows_narrow", "gather_rows_wide"})
+        b_ms, b_by = bound(4 * (O + O * D + distinct * D))
+        d = dict(rows=O, table=[N, D], distinct_keys=distinct, bit_equal=equal, ms=ms,
+                 library_ms=library_ms, ms_new_tensor=ms_new,
+                 library_ms_new_tensor=library_ms_new, plain_ms=plain_ms,
+                 device_us_per_launch=dev_us, profiled_launches=seen, bound_ms=b_ms,
+                 bound_by=b_by)
+        details.append(d)
+        log("K5", json.dumps(d))
+        if not equal:
+            raise AssertionError(f"K5 differs from table[seg] at D = {D}")
+        if D == 3:
+            entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=library_ms)
+    return entry, details
 
 
 def _descriptor_sets(rng, n, m, m_live, n_shared):
@@ -480,46 +554,164 @@ def check_k3(rng):
     return entry, details
 
 
+def _k4_cases(rng):
+    """(name, keys, n_segments, D, BA shape?) of K4's checks: the smoke
+    map's last BA solve (17788 live observations, 5025 of 8192 points, 50 of
+    64 cameras) at each width BA sums, then the edge cases."""
+    import numpy as np
+
+    O = 17788
+
+    def pts():
+        return rng.integers(0, 5025, O)
+
+    def cams(rows=O):
+        return rng.integers(0, 50, rows)
+
+    return [
+        ("point D=3", pts(), 8192, 3, True),
+        ("point D=9", pts(), 8192, 9, True),
+        ("camera D=6", cams(), 64, 6, True),
+        ("camera D=36", cams(), 64, 36, True),
+        ("all rows in one segment", np.full(O, 4000), 8192, 3, False),
+        ("keys -3..n+3, points", rng.integers(-3, 8192 + 4, O), 8192, 3, False),
+        ("keys -3..n+3, cameras", rng.integers(-3, 64 + 4, O), 64, 6, False),
+        ("n_segments = 1", rng.integers(-1, 2, O), 1, 6, False),
+        ("200 of 8192 segments used",
+         rng.choice(8192, 200, replace=False)[rng.integers(0, 200, O)], 8192, 3, False),
+        ("map capacity: 65536 rows, 64 cameras", rng.integers(0, 64, 65536), 64, 36, False),
+    ]
+
+
 def check_k4(rng):
-    """K4 at the BA shapes of the smoke map's last solve (17788 live
-    observations, the table compacted to them): point-keyed over 8192
-    segments and camera-keyed over 64 (sorted once, as ba/schur.py does).
-    Relative error <= 1e-5 against the plain version; two runs bit-equal."""
+    """K4 on ``_k4_cases``: relative error <= 1e-5 against the plain version
+    and two runs bit-identical in every case, the first run with the
+    offsets and the longest length given as BA gives them, the second
+    building them itself. Both variants (short, long) must run. Times
+    (wrapper ms by CUDA events; device us per launch by the profiler at the
+    BA shapes) with the offsets given, beside ``torch.segment_reduce``; the
+    edge cases' times are of 3 batches of 20 calls."""
     import numpy as np
     import torch
 
     from fastmatch_tpu_torch.kernels import segment_ops as k4
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     details, entry = [], None
-    O = 17788
-    for what, n_seg, n_used, D in (("point", 8192, 5025, 9), ("camera", 64, 50, 36)):
-        keys = np.sort(rng.integers(0, n_used, O)).astype(np.int32)
-        seg = torch.from_numpy(keys).to(dev)
+    k4.sorted_segment_sum.by_variant.update(short=0, long=0)
+    for what, keys, n_seg, D, ba_shape in _k4_cases(rng):
+        seg = torch.from_numpy(np.sort(keys).astype(np.int32)).to(dev)
+        O = seg.shape[0]
         vals = torch.randn((O, D), device=dev)
-        got = k4.sorted_segment_sum(vals, seg, n_seg)
+        off = k4.segment_offsets(seg, n_seg)
+        max_len = int(k4.segment_lengths(off).max())
+        before = dict(k4.sorted_segment_sum.by_variant)
+        got = k4.sorted_segment_sum(vals, seg, n_seg, off, max_len)
+        variant = [k for k, v in k4.sorted_segment_sum.by_variant.items() if v > before[k]]
         again = k4.sorted_segment_sum(vals, seg, n_seg)
         ref = k4.segment_sum_plain(vals, seg, n_seg)
         scale = ref.abs().max().clamp(min=1e-30)
         rel = ((got - ref).abs().max() / scale).item()
         same = bool(torch.equal(got, again))
-        lengths = torch.bincount(seg.long(), minlength=n_seg)
-        ms = cuda_ms(lambda: k4.sorted_segment_sum(vals, seg, n_seg))
-        plain_ms = cuda_ms(lambda: k4.segment_sum_plain(vals, seg, n_seg))
-        library_ms = cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths))
-        b_ms, b_by = bound(4 * (O * D + O + n_seg * D), O * D)
-        d = dict(what=what, rows=O, cols=D, segments=n_seg, rel_err=rel,
+        lo, hi = off[[0, -1]].tolist()
+        inside, lengths = vals[lo:hi], k4.segment_lengths(off).long()
+        # The edge cases are timed at less depth than BA's shapes.
+        depth = dict(batches=7, reps=HOST_REPS) if ba_shape else dict(batches=3, reps=20)
+        ms = cuda_ms(lambda: k4.sorted_segment_sum(vals, seg, n_seg, off, max_len), **depth)
+        plain_ms = cuda_ms(lambda: k4.segment_sum_plain(vals, seg, n_seg), **depth)
+        library_ms = cuda_ms(lambda: torch.segment_reduce(inside, "sum", lengths=lengths),
+                             **depth)
+        dev_us, seen = (device_us(lambda: k4.sorted_segment_sum(vals, seg, n_seg, off, max_len),
+                                  {"segsum_short", "segsum_long"})
+                        if ba_shape else (None, 0))
+        # The rows inside [0, n) and the offsets read once, the sums written once.
+        b_ms, b_by = bound(4 * ((hi - lo) * D + n_seg + 1 + n_seg * D), (hi - lo) * D)
+        d = dict(what=what, rows=O, cols=D, segments=n_seg, rows_in_range=hi - lo,
+                 longest=max_len, variant=variant, rel_err=rel,
                  max_abs_err=(got - ref).abs().max().item(), bit_identical_runs=same,
-                 ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 device_us_per_launch=dev_us, profiled_launches=seen, bound_ms=b_ms,
                  bound_by=b_by)
         details.append(d)
         log("K4", json.dumps(d))
         if rel > 1e-5 or not same:
             raise AssertionError(f"K4 {what}: rel err {rel}, bit-identical runs {same}")
-        if what == "point":
+        if what == "point D=9":
             entry = dict(max_abs_err=d["max_abs_err"], ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    ran = dict(k4.sorted_segment_sum.by_variant)
+    log("K4 variants launched", json.dumps(ran))
+    if min(ran.values()) <= 0:
+        raise AssertionError(f"K4: a variant never ran: {ran}")
     return entry, details
+
+
+def host_breakdown():
+    """Host microseconds per call of each step of the K5 and K4 wrappers at
+    the BA shapes (17788 keys into 8192 x 3; point-keyed sum at D = 3 with
+    the offsets given), each the mean over 10,000 back-to-back calls by
+    ``time.perf_counter_ns`` (``host_us``), beside the costlier forms that
+    the wrappers no longer take (a ``torch.empty`` given a device, a
+    ``torch.cuda.Stream`` object) and the library calls. ``loop`` is the
+    timing loop's own cost, included in every other figure."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.kernels import _build
+    from fastmatch_tpu_torch.kernels import segment_ops as ops
+
+    n_calls = 10_000
+
+    def per_call_us(fn):
+        return host_us(fn, n_calls)
+
+    rng = np.random.default_rng(1)
+    dev = torch.device(DEV)
+    O, N, D = 17788, 8192, 3
+    seg = torch.from_numpy(np.sort(rng.integers(0, 5025, O)).astype(np.int32)).to(dev)
+    table = torch.randn((N, D), device=dev)
+    buf, lib_buf = table.new_empty((O, D)), table.new_empty((O, D))
+    gather = _build.entry("gather_rows", "fm_gather_rows", ops._ARGTYPES)
+    ptrs = (table.data_ptr(), seg.data_ptr(), buf.data_ptr())
+    stream = _build.stream_of(table)
+    k5 = dict(
+        loop=per_call_us(lambda: None),
+        wrapper_into_buffer=per_call_us(lambda: ops.sorted_gather_rows(table, seg, out=buf)),
+        wrapper=per_call_us(lambda: ops.sorted_gather_rows(table, seg)),
+        checks=per_call_us(lambda: ops._gather_args(table, seg)),
+        alloc_new_empty=per_call_us(lambda: table.new_empty((O, D))),
+        alloc_torch_empty_with_device=per_call_us(lambda: torch.empty(
+            (O, D), dtype=torch.float32, device=table.device)),
+        stream_raw=per_call_us(lambda: _build.stream_of(table)),
+        stream_object=per_call_us(
+            lambda: torch.cuda.current_stream(table.device).cuda_stream),
+        entry_lookup=per_call_us(
+            lambda: _build.entry("gather_rows", "fm_gather_rows", ops._ARGTYPES)),
+        data_ptrs=per_call_us(lambda: (table.data_ptr(), seg.data_ptr(), buf.data_ptr())),
+        ctypes_launch=per_call_us(lambda: gather(ptrs[0], ptrs[1], O, N, D, ptrs[2], stream)),
+        index_select_into_buffer=per_call_us(
+            lambda: torch.index_select(table, 0, seg, out=lib_buf)),
+        index_select=per_call_us(lambda: torch.index_select(table, 0, seg)),
+    )
+    vals = torch.randn((O, D), device=dev)
+    off = ops.segment_offsets(seg, N)
+    max_len = int(ops.segment_lengths(off).max())
+    ssum = _build.entry("segment_sum", "fm_sorted_segment_sum", ops._ARGTYPES)
+    sums = vals.new_empty((N, D))
+    lengths = ops.segment_lengths(off).long()
+    k4 = dict(
+        loop=k5["loop"],
+        wrapper=per_call_us(lambda: ops.sorted_segment_sum(vals, seg, N, off, max_len)),
+        checks=per_call_us(lambda: ops._sum_args(vals, seg, N, off, max_len)),
+        alloc_new_empty=per_call_us(lambda: vals.new_empty((N, D))),
+        ctypes_launch=per_call_us(lambda: ssum(vals.data_ptr(), off.data_ptr(), N, D, 0,
+                                               sums.data_ptr(), stream)),
+        segment_reduce=per_call_us(lambda: torch.segment_reduce(vals, "sum",
+                                                                lengths=lengths)),
+    )
+    steps = dict(calls_per_step=n_calls, k5_17788x3=k5, k4_point_17788x3=k4)
+    log("host_breakdown_us", json.dumps(steps))
+    return steps
 
 
 # -- phases 4 and 5: reconstruct ---------------------------------------------------
@@ -702,12 +894,14 @@ def main_path(scene, views):
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
+    k4.sorted_segment_sum.by_variant.update(short=0, long=0)
     t0 = time.perf_counter()
     rec = reconstruct(None, Pinhole.from_K(scene.K), PipelineConfig(), images=views,
                       device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
+    k4_variants = dict(k4.sorted_segment_sum.by_variant)
     n = rec.n_frames
     centers = rec.camera_centers()
     gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
@@ -716,7 +910,8 @@ def main_path(scene, views):
     stats = dict(scene=SMOKE_SCENE, frames=len(views), frames_reconstructed=n,
                  seconds=secs, frames_per_s=n / secs, stage_seconds=rec.stage_seconds,
                  peak_mem_bytes=torch.cuda.max_memory_allocated(), ate=ate,
-                 n_points=int(pts.shape[0]), n_obs=rec.n_obs, launches=launches)
+                 n_points=int(pts.shape[0]), n_obs=rec.n_obs, launches=launches,
+                 k4_launches_by_variant=k4_variants)
     log("main_path", json.dumps(stats))
     if n != len(views) or not np.isfinite(centers).all() or not np.isfinite(pts).all():
         raise AssertionError(f"main path: {n}/{len(views)} frames, or non-finite output")
@@ -767,6 +962,7 @@ def main() -> int:
                      ("sorted_segment_sum", check_k4), ("batch_match", check_k1),
                      ("sorted_gather_rows", check_k5)):
         entries[name], details[name] = phase(f"check_{name}", fn, rng)
+    details["host_breakdown_us"] = phase("host_breakdown", host_breakdown)
 
     phase("small_reference", small_reference)
     scene, views = phase("render", render_smoke_scene)

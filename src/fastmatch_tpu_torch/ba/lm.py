@@ -41,7 +41,7 @@ def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
     """Run LM to convergence (or max_iters) on the problem's device."""
     n_cams, n_points = problem.n_cams, problem.n_points
     obs = problem.obs
-    keys = segment_keys(obs)
+    keys = segment_keys(obs, n_cams, n_points)
     upd_mask = (problem.cam_mask & ~problem.fixed_cams).float()
     pt_upd = problem.pt_mask.float()
 

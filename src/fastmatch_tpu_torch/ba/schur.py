@@ -8,7 +8,9 @@ product. Every reduction over the observation table goes through
 (``kernels/segment_ops.sorted_segment_sum``), which needs sorted keys:
 point keys are sorted by ``ba_solve``; camera keys are put in order by one
 stable sort per solve (``segment_keys``), and camera-keyed values are
-permuted into that order before each sum. The point-keyed row gathers go
+permuted into that order before each sum. ``segment_keys`` also builds each
+key set's segment offsets and longest segment once per solve, which every
+sum passes to the kernel. The point-keyed row gathers go
 through the K5 kernel wrapper (``kernels/segment_ops.sorted_gather_rows``,
 an exact copy); camera-keyed gathers stay plain indexing. The grouped
 layout waits.
@@ -21,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from fastmatch_tpu_torch.core.lie import hat
-from fastmatch_tpu_torch.kernels.segment_ops import sorted_gather_rows, sorted_segment_sum
+from fastmatch_tpu_torch.kernels.segment_ops import (segment_lengths, segment_offsets,
+                                                     sorted_gather_rows, sorted_segment_sum)
 
 
 class SegmentKeys(NamedTuple):
@@ -29,26 +32,47 @@ class SegmentKeys(NamedTuple):
     solve. ``*_perm`` is the stable permutation that sorts the table's rows
     by that key, or None when the table is already in that order.
     ``pt_rows`` is each row's point key in the table's own order (``pt``
-    itself once ``ba_solve`` has sorted the table by point)."""
+    itself once ``ba_solve`` has sorted the table by point). ``*_off`` are
+    the sorted keys' segment offsets (``segment_offsets``) and ``*_max`` the
+    longest segment's row count, which picks K4's variant. ``pt_gather`` is
+    the (O, 3) float32 buffer that every point-keyed gather writes into:
+    each gather's rows are consumed before the next gather."""
 
     pt: torch.Tensor
     pt_perm: torch.Tensor | None
     cam: torch.Tensor
     cam_perm: torch.Tensor | None
     pt_rows: torch.Tensor
+    pt_off: torch.Tensor
+    pt_max: int
+    cam_off: torch.Tensor
+    cam_max: int
+    pt_gather: torch.Tensor
 
 
-def segment_keys(obs) -> SegmentKeys:
-    def one(idx):
-        if bool((idx[1:] >= idx[:-1]).all()):
-            return idx.to(torch.int32).contiguous(), None
-        perm = torch.argsort(idx, stable=True)
-        return idx[perm].to(torch.int32).contiguous(), perm
+def _is_sorted(idx):
+    return (idx[1:] >= idx[:-1]).all()
 
-    pt, pt_perm = one(obs.pt_idx)
-    cam, cam_perm = one(obs.cam_idx)
+
+def segment_keys(obs, n_cams: int, n_points: int) -> SegmentKeys:
+    """The observation table's SegmentKeys for ``n_cams`` camera and
+    ``n_points`` point segments, with two readbacks."""
+    pt_sorted, cam_sorted = torch.stack([_is_sorted(obs.pt_idx),
+                                         _is_sorted(obs.cam_idx)]).tolist()
+
+    def one(idx, is_sorted, n):
+        perm = None if is_sorted else torch.argsort(idx, stable=True)
+        keys = (idx if perm is None else idx[perm]).to(torch.int32).contiguous()
+        return keys, perm, segment_offsets(keys, n)
+
+    pt, pt_perm, pt_off = one(obs.pt_idx, pt_sorted, n_points)
+    cam, cam_perm, cam_off = one(obs.cam_idx, cam_sorted, n_cams)
+    pt_max, cam_max = torch.stack([segment_lengths(pt_off).max(),
+                                   segment_lengths(cam_off).max()]).tolist()
     pt_rows = pt if pt_perm is None else obs.pt_idx.to(torch.int32).contiguous()
-    return SegmentKeys(pt, pt_perm, cam, cam_perm, pt_rows)
+    pt_gather = torch.empty((pt.shape[0], 3), dtype=torch.float32, device=pt.device)
+    return SegmentKeys(pt, pt_perm, cam, cam_perm, pt_rows, pt_off, pt_max, cam_off, cam_max,
+                       pt_gather)
 
 
 def _project(p):
@@ -62,7 +86,7 @@ def residuals_and_jacobians(poses, points, obs, huber_delta: float | None = None
     """Per-observation residuals (O, 2), Jacobians Jc (O, 2, 6), Jp
     (O, 2, 3) and weights w (O,) folding mask, cheirality and Huber IRLS."""
     if keys is None:
-        keys = segment_keys(obs)
+        keys = segment_keys(obs, poses.R.shape[0], points.shape[0])
     Rc = _gather_rows(poses.R, obs.cam_idx)
     tc = _gather_rows(poses.t, obs.cam_idx)
     X = _gather_pt(points, keys)
@@ -98,22 +122,24 @@ class BlockSystem(NamedTuple):
     w: torch.Tensor
 
 
-def _seg_sum(vals, keys, n, perm=None):
+def _seg_sum(vals, keys, n, perm, offsets, max_len):
     """Segment sum of (O, ...) rows by sorted ``keys`` into (n, ...), through
-    the K4 kernel wrapper; ``perm`` puts the rows in key order first."""
+    the K4 kernel wrapper with the solve's offsets and longest segment;
+    ``perm`` puts the rows in key order first."""
     shape = vals.shape
     flat = vals.reshape(shape[0], -1)
     if perm is not None:
         flat = flat[perm]
-    return sorted_segment_sum(flat.contiguous(), keys, n).reshape((n,) + shape[1:])
+    out = sorted_segment_sum(flat.contiguous(), keys, n, offsets, max_len)
+    return out.reshape((n,) + shape[1:])
 
 
 def _seg_sum_pt(vals, keys: SegmentKeys, n):
-    return _seg_sum(vals, keys.pt, n, keys.pt_perm)
+    return _seg_sum(vals, keys.pt, n, keys.pt_perm, keys.pt_off, keys.pt_max)
 
 
 def _seg_sum_cam(vals, keys: SegmentKeys, n):
-    return _seg_sum(vals, keys.cam, n, keys.cam_perm)
+    return _seg_sum(vals, keys.cam, n, keys.cam_perm, keys.cam_off, keys.cam_max)
 
 
 def _gather_rows(table, idx):
@@ -123,14 +149,16 @@ def _gather_rows(table, idx):
 
 def _gather_pt(table, keys: SegmentKeys):
     """(P, 3) table rows by each observation's point key, through the K5
-    kernel wrapper (``ba_solve`` sorts the observation table by point)."""
-    return sorted_gather_rows(table.contiguous(), keys.pt_rows)
+    kernel wrapper (``ba_solve`` sorts the observation table by point),
+    into the solve's buffer ``keys.pt_gather``: use the result before the
+    next gather."""
+    return sorted_gather_rows(table.contiguous(), keys.pt_rows, out=keys.pt_gather)
 
 
 def assemble(poses, points, obs, n_cams, n_points, huber_delta=None, keys=None):
     """Block normal equations and cost at (poses, points)."""
     if keys is None:
-        keys = segment_keys(obs)
+        keys = segment_keys(obs, n_cams, n_points)
     res, Jc, Jp, w = residuals_and_jacobians(poses, points, obs, huber_delta, keys)
     wv = w[:, None, None]
     Hcc = _seg_sum_cam(torch.einsum("oki,okj->oij", Jc * wv, Jc), keys, n_cams)

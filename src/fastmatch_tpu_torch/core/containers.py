@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fastmatch_tpu_torch.core.device import resolve_device
+
 # Canonical SIFT descriptor dimensionality (4x4 spatial bins x 8 orientations).
 DESC_DIM = 128
 # Default per-image keypoint capacity.
@@ -81,13 +83,14 @@ def pad_to_capacity(arr: np.ndarray, capacity: int, fill: float = 0.0):
 
 
 def descriptors_from_numpy(desc: np.ndarray, capacity: int = DEFAULT_CAPACITY,
-                           device="cpu") -> Descriptors:
-    """Build a padded Descriptors container from a host (N, 128) array."""
+                           device=None) -> Descriptors:
+    """Build a padded Descriptors container from a host (N, 128) array, on
+    ``device`` (``cuda`` unless ``device="cpu"``)."""
     if desc.ndim != 2 or desc.shape[1] != DESC_DIM:
         raise ValueError(f"expected (N, {DESC_DIM}) descriptors, got {desc.shape}")
+    dev = resolve_device(device)
     data, mask = pad_to_capacity(desc.astype(np.float32), capacity)
-    return Descriptors(torch.from_numpy(data).to(device),
-                       torch.from_numpy(mask).to(device))
+    return Descriptors(torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev))
 
 
 def unpack_bits_signed(packed: torch.Tensor, mask: torch.Tensor,
@@ -113,11 +116,12 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def binary_descriptors_from_numpy(packed: np.ndarray, capacity: int = DEFAULT_CAPACITY,
-                                  device="cpu") -> BinaryDescriptors:
+                                  device=None) -> BinaryDescriptors:
     """Build a padded BinaryDescriptors container from a host (N, W) uint32
-    array."""
+    array, on ``device`` (``cuda`` unless ``device="cpu"``)."""
     if packed.ndim != 2 or packed.dtype != np.uint32:
         raise ValueError(f"expected (N, W) uint32 packed bits, got {packed.shape} {packed.dtype}")
+    dev = resolve_device(device)
     data, mask = pad_to_capacity(packed, capacity)
-    return BinaryDescriptors(torch.from_numpy(data.view(np.int32)).to(device),
-                             torch.from_numpy(mask).to(device))
+    return BinaryDescriptors(torch.from_numpy(data.view(np.int32)).to(dev),
+                             torch.from_numpy(mask).to(dev))

@@ -5,6 +5,11 @@ arrays (or any object with the same field names) that the JAX side hands
 out and build the port's containers, so both packages can run on identical
 inputs: descriptors, a bundle-adjustment problem, a reconstruction's map
 state and the configuration dataclasses.
+
+These helpers carry the JAX side's state into tests and checks; they are no
+entry point of the system, so their own ``device`` defaults to the CPU.
+``descriptors_from_numpy``, re-exported from ``core.containers``, is an
+entry point and defaults to the card like every other.
 """
 
 from __future__ import annotations

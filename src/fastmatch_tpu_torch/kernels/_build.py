@@ -18,6 +18,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -121,7 +123,7 @@ def ptr(t) -> int:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of a tensor's device, for a ``c_void_p``."""
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of a tensor's device, for a
+    ``c_void_p``. Read without building a ``torch.cuda.Stream`` object, as
+    Triton's launcher reads it: it is paid on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

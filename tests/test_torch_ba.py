@@ -3,7 +3,9 @@ package's, the K4 segment sum's plain version against the TPU kernel
 (``sorted_segment_sum(interpret=True)``) and ``jax.ops.segment_sum``, and
 the K5 row gather's plain version against ``sorted_gather_rows(interpret=True)``
 (rtol/atol 1e-5: the TPU kernel rebuilds each value from bf16 hi/lo parts)
-and, exactly, against ``table[seg]``.
+and, exactly, against ``table[seg]``. The segment offsets that K4's kernel
+reads in place of the keys (``segment_offsets``, ``SegmentKeys``) are held
+exactly against ``np.searchsorted``.
 
 Tolerances, with reasons: segment sums of float32 rows agree to 1e-4
 absolute on unit-scale data (the frameworks add the rows of a segment in
@@ -32,6 +34,8 @@ from synth import SyntheticScene
 from fastmatch_tpu_torch.ba import lm as tlm
 from fastmatch_tpu_torch.ba import schur as tschur
 from fastmatch_tpu_torch.ba.problem import Observations
+from fastmatch_tpu_torch.core.containers import (binary_descriptors_from_numpy,
+                                                 descriptors_from_numpy)
 from fastmatch_tpu_torch.interop import ba_problem_from_numpy
 from fastmatch_tpu_torch.kernels import segment_ops as k4
 from fastmatch_tpu_torch.pipeline import tracker as ttracker
@@ -109,7 +113,7 @@ def test_segment_sum_camera_keyed_unsorted(rng):
     ref = np.asarray(j_segsum(jnp.asarray(vals), jnp.asarray(cam), C, interpret=True))
     obs = Observations(torch.from_numpy(cam), torch.from_numpy(np.zeros(O, np.int32)),
                        torch.zeros((O, 2)), torch.ones(O, dtype=torch.bool))
-    keys = tschur.segment_keys(obs)
+    keys = tschur.segment_keys(obs, C, 1)
     assert keys.cam_perm is not None and keys.pt_perm is None
     assert bool((keys.cam[1:] >= keys.cam[:-1]).all())
     out = tschur._seg_sum_cam(torch.from_numpy(vals.reshape(O, 6, 6)), keys, C)
@@ -122,6 +126,69 @@ def test_segment_sum_drops_out_of_range_keys(rng):
     out = k4.segment_sum_plain(torch.from_numpy(vals), torch.from_numpy(seg), 32)
     ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=32))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def _edge_case(rng, case):
+    """(vals, sorted int32 keys, n_segments) of one K4 edge case."""
+    O, D = 2000, 3
+    if case == "one_segment":        # every row in one segment of 512
+        n, seg = 512, np.full(O, 200)
+    elif case == "mostly_empty":     # keys from 20 of 2048 segments
+        n = 2048
+        seg = rng.choice(n, 20, replace=False)[rng.integers(0, 20, O)]
+    elif case == "out_of_range":     # keys from -3 to n + 3
+        n = 256
+        seg = rng.integers(-3, n + 4, O)
+    elif case == "n_segments_1":     # one segment, keys -1, 0 and 1
+        n = 1
+        seg = rng.integers(-1, 2, O)
+    else:                            # long camera-keyed segments at D = 36
+        n, D = 16, 36
+        seg = rng.integers(0, 12, O)
+    vals = rng.standard_normal((O, D)).astype(np.float32)
+    return vals, np.sort(seg).astype(np.int32), n
+
+
+@pytest.mark.parametrize("case", ["one_segment", "mostly_empty", "out_of_range",
+                                  "n_segments_1", "long_camera"])
+def test_segment_sum_edge_cases_vs_jax(rng, case):
+    vals, seg, n = _edge_case(rng, case)
+    off = k4.segment_offsets(torch.from_numpy(seg), n)
+    assert off.dtype == torch.int32
+    np.testing.assert_array_equal(off.numpy(), np.searchsorted(seg, np.arange(n + 1)))
+    max_len = int(k4.segment_lengths(off).max())
+    inside = seg[(seg >= 0) & (seg < n)]
+    assert max_len == np.bincount(inside, minlength=n).max()
+    # The variant the card would take: only the out-of-range case has short
+    # segments (a few rows each).
+    assert (max_len <= k4.SHORT_MAX_LEN) == (case == "out_of_range")
+    before = k4.sorted_segment_sum.launches
+    out = k4.sorted_segment_sum(torch.from_numpy(vals), torch.from_numpy(seg), n, off, max_len)
+    assert k4.sorted_segment_sum.launches == before  # CPU: the plain version
+    ref = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=n))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("table", ["point_sorted", "unsorted"])
+def test_segment_keys_offsets(table):
+    # ba_solve's point-sorted table (camera keys unsorted) and a shuffled
+    # table with neither key sorted; the dead rows are keyed to point and
+    # camera 0 and count in those segments, as on the card.
+    prob = ba_problem_from_numpy(*problem_arrays(seed=5, shuffle=True))
+    if table == "point_sorted":
+        prob = tlm.sort_obs_by_point(prob)
+    obs = prob.obs
+    keys = tschur.segment_keys(obs, 6, 150)
+    assert (keys.pt_perm is None) == (table == "point_sorted")
+    assert keys.cam_perm is not None
+    np.testing.assert_array_equal(keys.pt_rows.numpy(), obs.pt_idx.numpy())
+    for idx, got, off, longest, n in ((obs.pt_idx, keys.pt, keys.pt_off, keys.pt_max, 150),
+                                      (obs.cam_idx, keys.cam, keys.cam_off, keys.cam_max, 6)):
+        ref = np.sort(idx.numpy(), kind="stable")
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert got.dtype == off.dtype == torch.int32
+        np.testing.assert_array_equal(off.numpy(), np.searchsorted(ref, np.arange(n + 1)))
+        assert isinstance(longest, int) and longest == np.bincount(ref, minlength=n).max()
 
 
 # -- K5: the row gather ------------------------------------------------------------
@@ -138,6 +205,16 @@ def test_gather_rows_vs_tpu_kernel(rng):
     assert k4.sorted_gather_rows.launches == before  # CPU: the plain version
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(out.numpy(), table[seg])
+
+
+def test_gather_rows_into_buffer(rng):
+    # BA's form: the rows go into a given (O, D) buffer, which is returned.
+    table = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32))
+    seg = torch.from_numpy(np.sort(rng.integers(0, 40, 100)).astype(np.int32))
+    buf = torch.empty((100, 3))
+    out = k4.sorted_gather_rows(table, seg, out=buf)
+    assert out is buf
+    assert torch.equal(buf, table[seg.long()])
 
 
 def test_gather_rows_out_of_range_keys_are_zero(rng):
@@ -158,14 +235,16 @@ def test_ba_solve_through_k5_is_bit_identical(monkeypatch):
     calls = []
     real = tschur.sorted_gather_rows
 
-    def spy(table, seg):
-        calls.append(tuple(table.shape))
-        return real(table, seg)
+    def spy(table, seg, out=None):
+        calls.append((tuple(table.shape), out is not None))
+        return real(table, seg, out=out)
 
     monkeypatch.setattr(tschur, "sorted_gather_rows", spy)
     new = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
-    assert len(calls) > 3 and all(c[1] == 3 for c in calls)
-    monkeypatch.setattr(tschur, "sorted_gather_rows", lambda table, seg: table[seg.long()])
+    # Every gather is of 3 columns and writes into the solve's buffer.
+    assert len(calls) > 3 and all(c == (c[0], True) and c[0][1] == 3 for c in calls)
+    monkeypatch.setattr(tschur, "sorted_gather_rows",
+                        lambda table, seg, out=None: table[seg.long()])
     old = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
     for a, b in ((new.poses.R, old.poses.R), (new.poses.t, old.poses.t),
                  (new.points, old.points), (new.cost, old.cost), (new.cost0, old.cost0)):
@@ -200,7 +279,7 @@ def test_pcg_and_back_substitution_vs_jax():
     upd = (arrs[7] & ~arrs[9]).astype(np.float32)
     lam = 1e-3
     jdx = jschur.pcg_solve(jsys, jp.obs, jnp.float32(lam), 150, jnp.asarray(upd), iters=20)
-    keys = tschur.segment_keys(tp.obs)
+    keys = tschur.segment_keys(tp.obs, 6, 150)
     tdx = tschur.pcg_solve(tsys, tp.obs, torch.tensor(lam), 150, torch.from_numpy(upd), keys,
                            iters=20)
     scale = np.abs(np.asarray(jdx)).max()
@@ -240,6 +319,24 @@ def test_compact_obs_and_bucket_vs_jax():
                                           np.asarray(getattr(jc.obs, name)))
         assert tc.obs.mask.shape[0] == b and int(tc.obs.mask.sum()) == n_live
     assert bool(tc.obs.mask.all())
+
+
+def test_descriptor_containers_default_to_cuda():
+    # The two container constructors are entry points: the card unless the
+    # caller asks for the CPU; the shape and type checks raise first.
+    rng = np.random.default_rng(0)
+    desc = rng.random((40, 128)).astype(np.float32)
+    words = rng.integers(0, 2 ** 32, (40, 8), dtype=np.uint64).astype(np.uint32)
+    for build, arr in ((descriptors_from_numpy, desc), (binary_descriptors_from_numpy, words)):
+        out = build(arr, 64, device="cpu")
+        assert out.mask.device.type == "cpu" and int(out.mask.sum()) == 40
+        if torch.cuda.is_available():
+            assert build(arr, 64).mask.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build(arr, 64)
+        with pytest.raises(ValueError):
+            build(arr[:, :5].astype(np.float64), 64)
 
 
 def test_ba_solve_default_device_is_cuda():

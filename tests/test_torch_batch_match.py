@@ -252,7 +252,7 @@ def test_binary_containers_vs_jax():
     rng = np.random.default_rng(3)
     words = _random_packed(rng, 300)
     ref = j_binary_from_numpy(words, 512)
-    port = binary_descriptors_from_numpy(words, 512)
+    port = binary_descriptors_from_numpy(words, 512, device="cpu")
     np.testing.assert_array_equal(port.packed.numpy().view(np.uint32), np.asarray(ref.packed))
     np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
     assert port.n_bits == ref.n_bits == 256 and int(port.count()) == int(ref.count()) == 300

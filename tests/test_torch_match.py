@@ -69,7 +69,7 @@ def _padded(a, cap):
 def test_descriptors_from_numpy_vs_jax(rng, n):
     desc = random_descriptors(rng, n)
     ref = j_descriptors_from_numpy(desc, capacity=512)
-    port = descriptors_from_numpy(desc, capacity=512)
+    port = descriptors_from_numpy(desc, capacity=512, device="cpu")
     np.testing.assert_array_equal(port.data.numpy(), np.asarray(ref.data))
     np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
     with pytest.raises(ValueError, match="descriptors"):

@@ -1,16 +1,25 @@
-"""BA's host seconds with the K5 row gather against plain indexing, on one GPU.
+"""BA's host seconds with the K4 and K5 kernels against library calls, on one GPU.
 
 Runs ``reconstruct(images=...)`` of the smoke scene (``chip_smoke.SMOKE_SCENE``,
-640x480, default ``PipelineConfig``) once to warm up, then in turns with BA's
-point-keyed gathers through K5 (``kernels/segment_ops.sorted_gather_rows``,
-as shipped) and through one ``torch.index_select`` call each (the plain
-indexing they replaced): K5, plain, plain, K5, ... Both gathers are exact,
-so every run does the same BA work; each run's ATE is printed to show it.
-Prints one JSON line and writes it to ``chiprun_out/ba_gather_ab.json``:
-per variant, the BA stage's host seconds (``Reconstruction.stage_seconds``)
-and the wall seconds of each run, and K5's launch count per run.
+640x480, default ``PipelineConfig``) once to warm up, then in pairs, the
+order alternating from pair to pair (kernels first, then library first):
 
-    python tools/ba_gather_ab.py [--rounds N] [--frames N]
+- ``kernels``: BA as shipped, its segment sums through K4
+  (``kernels/segment_ops.sorted_segment_sum``, with the solve's offsets)
+  and its point-keyed gathers through K5 (``sorted_gather_rows``);
+- ``library``: the same sums through ``segment_sum_plain`` (one
+  ``index_add_``) and the same gathers through one ``torch.index_select``
+  into the same buffer.
+
+Both gathers are exact and both sums are fp32, so the two variants do the
+same BA work to within summation order; each run's ATE is printed to show
+it. Prints one JSON line and writes it to ``chiprun_out/ba_gather_ab.json``:
+per variant, each run's BA stage host seconds
+(``Reconstruction.stage_seconds``), wall seconds and K4/K5 launches; the
+medians, the interquartile range of each variant's BA seconds (the
+spread), and in how many pairs the kernels' BA seconds were lower.
+
+    python tools/ba_gather_ab.py [--pairs N] [--frames N]
 """
 
 from __future__ import annotations
@@ -28,6 +37,11 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, ROOT)
 
 
+def _iqr(xs):
+    q = statistics.quantiles(xs, n=4)
+    return q[2] - q[0]
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -41,7 +55,7 @@ def main(argv=None) -> int:
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rounds", type=int, default=2, help="K5/plain/plain/K5 rounds")
+    ap.add_argument("--pairs", type=int, default=6, help="(kernels, library) pairs")
     ap.add_argument("--frames", type=int, default=SMOKE_SCENE["n_frames"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -51,12 +65,17 @@ def main(argv=None) -> int:
     _build.build_all()
     scene, views = render_smoke_scene(args.frames)
     cam = Pinhole.from_K(scene.K)
-    gathers = {"k5": segment_ops.sorted_gather_rows,
-               "plain": lambda table, seg: torch.index_select(table, 0, seg)}
-    runs = {k: [] for k in gathers}
+    ops = {
+        "kernels": (segment_ops.sorted_segment_sum, segment_ops.sorted_gather_rows),
+        "library": (lambda vals, seg, n, offsets, max_len:
+                    segment_ops.segment_sum_plain(vals, seg, n),
+                    lambda table, seg, out=None: torch.index_select(table, 0, seg, out=out)),
+    }
+    runs = {k: [] for k in ops}
 
     def run(variant):
-        schur.sorted_gather_rows = gathers[variant]
+        schur.sorted_segment_sum, schur.sorted_gather_rows = ops[variant]
+        segment_ops.sorted_segment_sum.launches = 0
         segment_ops.sorted_gather_rows.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -67,22 +86,27 @@ def main(argv=None) -> int:
         gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
         return dict(wall_s=wall, ba_s=rec.stage_seconds["ba"], frames=n,
                     ate=float(ate_rmse(rec.camera_centers(), gt)),
+                    k4_launches=segment_ops.sorted_segment_sum.launches,
                     k5_launches=segment_ops.sorted_gather_rows.launches)
 
     try:
-        run("k5")  # warm-up
-        for _ in range(args.rounds):
-            for variant in ("k5", "plain", "plain", "k5"):
+        run("kernels")  # warm-up
+        for i in range(args.pairs):
+            order = ("kernels", "library") if i % 2 == 0 else ("library", "kernels")
+            for variant in order:
                 runs[variant].append(run(variant))
     finally:
-        schur.sorted_gather_rows = gathers["k5"]
+        schur.sorted_segment_sum, schur.sorted_gather_rows = ops["kernels"]
 
+    ba = {k: [r["ba_s"] for r in v] for k, v in runs.items()}
     out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
-               order="k5, plain, plain, k5 per round", runs=runs,
-               median_ba_s={k: statistics.median(r["ba_s"] for r in v)
-                            for k, v in runs.items()},
+               order="pairs alternate: kernels first, then library first", runs=runs,
+               median_ba_s={k: statistics.median(v) for k, v in ba.items()},
+               iqr_ba_s={k: _iqr(v) for k, v in ba.items()},
                median_wall_s={k: statistics.median(r["wall_s"] for r in v)
-                              for k, v in runs.items()})
+                              for k, v in runs.items()},
+               kernels_lower_ba_pairs=sum(a < b for a, b in zip(ba["kernels"], ba["library"])),
+               pairs=args.pairs)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "ba_gather_ab.json"), "w") as fh:
         json.dump(out, fh, indent=1)

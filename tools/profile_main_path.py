@@ -13,7 +13,8 @@ JSON line and writes the same to ``chiprun_out/profile_main_path.json``:
 - device busy seconds in the profiled run (the union of all kernel and
   memcpy intervals) and the idle share of the timed and the profiled wall;
 - device time, launch count and mean microseconds per launch of the top
-  kernels by device time, and of the port's own CUDA kernels.
+  kernels by device time, of each of the port's own CUDA kernels (each
+  template instantiation apart), and summed per TPU kernel (K1-K5).
 
     python tools/profile_main_path.py [--frames N] [--top K]
 """
@@ -32,8 +33,10 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, ROOT)
 
 # The port's kernels by their CUDA function names (csrc/).
-PORT_KERNELS = {"topk_tiles": "K2", "topk_finalize": "K2", "gather_patches_kernel": "K3",
-                "segsum_sorted": "K4", "gather_rows": "K5"}
+PORT_KERNELS = {"batch_match_tiles": "K1", "batch_match_finalize": "K1",
+                "topk_tiles": "K2", "topk_finalize": "K2", "gather_patches_kernel": "K3",
+                "segsum_short": "K4", "segsum_long": "K4",
+                "gather_rows_narrow": "K5", "gather_rows_wide": "K5"}
 
 
 def _union_us(intervals):
@@ -51,7 +54,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import SMOKE_SCENE, nvidia_smi_line, render_smoke_scene
+    from chip_smoke import SMOKE_SCENE, kernel_short_name, nvidia_smi_line, render_smoke_scene
     from fastmatch_tpu_torch.core.camera import Pinhole
     from fastmatch_tpu_torch.kernels import _build
     from fastmatch_tpu_torch.pipeline.config import PipelineConfig
@@ -99,10 +102,18 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
     port = {}
     for name, (us, count) in by_name.items():
-        # Demangled names carry the signature: "(anonymous namespace)::segsum_sorted(...)".
-        short = name.split("(")[1 if name.startswith("(") else 0].split("::")[-1]
-        if short in PORT_KERNELS:
-            port[short] = dict(row(name, us, count), kernel=PORT_KERNELS[short])
+        # One entry per instantiation: segsum_short<3> and segsum_short<9> apart.
+        if kernel_short_name(name) in PORT_KERNELS:
+            short = name.split("(anonymous namespace)::")[-1].split("(")[0]
+            port[short] = dict(row(name, us, count),
+                               kernel=PORT_KERNELS[kernel_short_name(name)])
+    per_kernel = {}
+    for v in port.values():
+        d = per_kernel.setdefault(v["kernel"], dict(device_ms=0.0, launches=0))
+        d["device_ms"] += v["device_ms"]
+        d["launches"] += v["launches"]
+    for d in per_kernel.values():
+        d["mean_us"] = d["device_ms"] * 1e3 / d["launches"]
     n = rec.n_frames
     gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
     out = dict(
@@ -114,7 +125,8 @@ def main(argv=None) -> int:
         device_idle_share_profiled=1.0 - busy_s / wall,
         kernel_launches=sum(v[1] for v in by_name.values()),
         ate=float(ate_rmse(rec.camera_centers(), gt)),
-        top_kernels=[row(k, *v) for k, v in top], port_kernels=port)
+        top_kernels=[row(k, *v) for k, v in top], port_kernels=port,
+        port_kernels_total=per_kernel)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "profile_main_path.json"), "w") as fh:
         json.dump(out, fh, indent=1)
