@@ -6,7 +6,9 @@ Phases, in order; any failure exits nonzero before the result line:
 
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build of the CUDA kernels under ``src/fastmatch_tpu_torch/csrc/`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), and the SASS check of K1's
+   and K2's libraries (tensor-core instructions in the fast and binary
+   kernels, none in the exact ones);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: K1 (batched fused matcher) at BASELINE.json config 2's
    size (64 pairs of 2048-capacity sets with 1500 live 128-d descriptors,
@@ -15,9 +17,12 @@ Phases, in order; any failure exits nonzero before the result line:
    fast mode, K3 (patch gather) at the orientation and descriptor patch
    shapes of a 640x480 frame, K4 (sorted segment sum, both variants) at
    each width the bundle adjustment sums and at its edge cases, and K5
-   (sorted row gather) at the bundle adjustment's shapes; K4's and K5's
-   device time per launch by ``torch.profiler``, and the host time of each
-   step of their wrappers;
+   (sorted row gather) at the bundle adjustment's shapes; device time per
+   launch by ``torch.profiler`` (K1 and K2 per mode and shape, K4, K5),
+   K1's and K2's host time per call and the same-shape product alone
+   (``product_only_ms``), and the host time of each step of K4's and K5's
+   wrappers; then the edges of K1's and K2's shared tile engine, bit for
+   bit against the plain versions (``check_edges``);
 4. a small-input reference: ``reconstruct`` from synthetic features on the
    card and on the CPU, both held to the JAX package's ATE gate;
 5. the config-2 path from images: SIFT and ORB on 33 rendered 640x480
@@ -66,6 +71,10 @@ K1_MIN_VALID = 1000  # valid matches a gated K1 comparison needs
 # its wake-up from the previous batch's synchronise.
 HOST_REPS = 100
 DEV = "cuda"        # the device of the config-2 checks and phase
+# Kernel names (``kernel_short_name``) of one K1 and one K2 call: the shared
+# tile engine (csrc/match_tile.cuh) and each one's finalize.
+K1_KERNELS = {"match_tiles", "batch_match_finalize"}
+K2_KERNELS = {"match_tiles", "topk_finalize"}
 
 
 def render_smoke_scene(n_frames=None):
@@ -261,14 +270,29 @@ def check_k1(rng):
                agree >= 0.99 and n_valid >= min_valid,
                "fast agreement below 0.99, or too few valid matches")
 
-    def timed(name, fn, plain_fn, bnd, batch, peak, reps=10, plain_reps=2):
+    def timed(name, fn, plain_fn, bnd, batch, peak, product=None, reps=10, plain_reps=2,
+              prof_calls=10):
+        """Wrapper ms (CUDA events), device us per call of the kernel's own
+        launches (profiler), host us per call, the plain version's ms and
+        the product alone (``product_only_ms``: the same-shape batched
+        ``a @ b.T`` in the operands' type, TF32 off; a yardstick, not the
+        same function)."""
         ms = cuda_ms(fn, reps=reps)
         plain_ms = cuda_ms(plain_fn, batches=3, reps=plain_reps)
+        us, seen = device_us(fn, K1_KERNELS, n=prof_calls)
         rec = dict(mode=name, batch=batch, shape=[cap, cap, d], ms=ms,
                    pairs_per_s=batch / ms * 1e3, plain_ms=plain_ms, bound_ms=bnd[0],
-                   bound_by=bnd[1], peak=peak)
+                   bound_by=bnd[1], peak=peak,
+                   device_us_per_call=us * seen / prof_calls if seen else None,
+                   profiled_launches=seen, host_us_per_call=host_us(fn, 20),
+                   product_only_ms=cuda_ms(product, reps=reps) if product else None)
         record(rec, True, "")
         return rec
+
+    def product(da, db, dtype):
+        a = da.data.to(dtype)
+        bt = db.data.to(dtype).transpose(1, 2)
+        return lambda: torch.bmm(a, bt)
 
     # bench.py's workload: unrelated sets.
     da, db = sets(B, matched=False)
@@ -279,16 +303,12 @@ def check_k1(rng):
     ex_bound = k1_bound(da.mask, db.mask, 2 * d, 4 * d, PEAK_FP32_FLOPS)
     rec = timed("exact", lambda: k1.match_batch_fused(da, db),
                 lambda: k1.match_batch_fused_plain(da, db), ex_bound, B,
-                "fp32 CUDA cores, 67e12 FLOP/s")
-    # Device time of one call (tiles and finalize launches) by the profiler.
-    mean_us, seen = device_us(lambda: k1.match_batch_fused(da, db),
-                              {"batch_match_tiles", "batch_match_finalize"}, n=20)
-    record(dict(mode="exact", batch=B, device_us_per_call=mean_us * seen / 20
-                if seen else None, profiled_launches=seen), True, "")
+                "fp32 CUDA cores, 67e12 FLOP/s", product(da, db, torch.float32), reps=5)
     timed("fast", lambda: k1.match_batch_fused(da, db, fast=True),
           lambda: k1.match_batch_fused_plain(da, db, fast=True),
           k1_bound(da.mask, db.mask, 2 * d, 2 * d, PEAK_BF16_FLOPS), B,
-          "bf16 operands: tensor-core peak 989e12 FLOP/s (the kernel runs fp32 FMAs)")
+          "bf16 operands: tensor-core peak 989e12 FLOP/s (wgmma)",
+          product(da, db, torch.bfloat16))
 
     # Noisy-copy banks: thousands of valid matches, many near the threshold.
     da, db = sets(B, matched=True)
@@ -296,7 +316,8 @@ def check_k1(rng):
     hold_fast(da, db, 0.8, "noisy copies", ref)
     del ref, da, db
     entry = dict(max_abs_err=max(errs), ms=rec["ms"], plain_ms=rec["plain_ms"],
-                 bound_ms=ex_bound[0], bound_by=ex_bound[1], library_ms=None)
+                 bound_ms=ex_bound[0], bound_by=ex_bound[1], library_ms=None,
+                 product_only_ms=rec["product_only_ms"])
 
     # bench.py's binary leg: 64 x 2048 x 8 words, half the rows re-drawn.
     words = rng.integers(0, 2 ** 32, size=(B, cap, 8), dtype=np.uint64).astype(np.uint32)
@@ -332,7 +353,7 @@ def check_k1(rng):
     timed("binary", lambda: hamming.match_batch_hamming(A, Bk, backend="mxu", device=DEV),
           kernel_plain, k1_bound(A.mask, Bk.mask, 2 * 256, 32, PEAK_INT_OPS), B,
           "+-1 products of 256 bits against the int8 tensor-core peak 1979e12 op/s "
-          "(the kernel runs xor + popcount)")
+          "(wgmma s8)")
     del got, anchor, A, Bk
 
     # Fast at 256 pairs on noisy-copy banks; the exact plain version is
@@ -348,17 +369,25 @@ def check_k1(rng):
     timed("fast", lambda: k1.match_batch_fused(da, db, fast=True),
           lambda: k1.match_batch_fused_plain(da, db, fast=True),
           k1_bound(da.mask, db.mask, 2 * d, 2 * d, PEAK_BF16_FLOPS), BB,
-          "bf16 operands: tensor-core peak 989e12 FLOP/s (the kernel runs fp32 FMAs)",
-          reps=4, plain_reps=1)
+          "bf16 operands: tensor-core peak 989e12 FLOP/s (wgmma)",
+          product(da, db, torch.bfloat16), reps=4, plain_reps=1, prof_calls=4)
     return entry, details
 
 
+def kernel_instance_name(name):
+    """A demangled CUDA kernel name without return type, namespaces or
+    signature: ``"void fm::(anonymous namespace)::match_tiles<0, 1>(fm::
+    (anonymous namespace)::TileArgs)"`` -> ``"match_tiles<0, 1>"``."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0]
+    head = head.split(" ", 1)[1] if head.startswith("void ") else head
+    return head.split("<")[0].split("::")[-1] + ("<" + head.split("<", 1)[1] if "<" in head else "")
+
+
 def kernel_short_name(name):
-    """A demangled CUDA kernel name without return type, namespace,
-    template arguments or signature: ``"void (anonymous
-    namespace)::segsum_short<3>(float const*, ...)"`` -> ``"segsum_short"``."""
-    head = name.split("(anonymous namespace)::")[-1].split("(")[0]
-    return head.split("<")[0].split("::")[-1].split(" ")[-1]
+    """``kernel_instance_name`` without template arguments: ``"void
+    (anonymous namespace)::segsum_short<3>(float const*, ...)"`` ->
+    ``"segsum_short"``."""
+    return kernel_instance_name(name).split("<")[0]
 
 
 def device_us(fn, names, n=300):
@@ -479,14 +508,21 @@ def check_k2(rng):
             raw = dict(idx1=(ki1 == pi1).float().mean().item(),
                        nnb=(knnb[db.mask] == pnnb[db.mask]).float().mean().item(),
                        d1=(kd1 - pd1).abs().max().item(), d2=(kd2 - pd2).abs().max().item())
-            ms = cuda_ms(lambda: k2.distance_topk(a, b, b2m, a2m, fast=fast))
+            call = lambda: k2.distance_topk(a, b, b2m, a2m, fast=fast)  # noqa: E731
+            ms = cuda_ms(call)
             plain_ms = cuda_ms(lambda: k2.distance_topk_plain(a, b, b2m, a2m, fast=fast))
+            us, seen = device_us(call, K2_KERNELS, n=50)
+            # The product alone in the operands' type (TF32 off): a yardstick.
+            pa, pbt = (a.bfloat16(), b.bfloat16().T) if fast else (a, b.T)
             n_bytes = 4 * (n * 128 + m * 128 + n + m) + 4 * (3 * n + m)
             b_ms, b_by = bound(n_bytes, 2.0 * n * m * 128,
                                PEAK_BF16_FLOPS if fast else PEAK_FP32_FLOPS)
             d = dict(shape=[n, m, 128], mode=mode, decision_agreement=agree,
                      n_valid=int(ref.valid.sum()), max_abs_err=err, raw=raw, ms=ms,
-                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     device_us_per_call=us * seen / 50 if seen else None,
+                     profiled_launches=seen, host_us_per_call=host_us(call, 200),
+                     product_only_ms=cuda_ms(lambda: pa @ pbt))
             details.append(d)
             log("K2", json.dumps(d))
             if mode == "exact" and agree != 1.0:
@@ -496,8 +532,162 @@ def check_k2(rng):
             if mode == "exact" and m == 8192:
                 entry = dict(max_abs_err=max(err, raw["d1"], raw["d2"]), ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None)
+                             library_ms=None, product_only_ms=d["product_only_ms"])
     return entry, details
+
+
+def _quarter_sets(rng, n, m, d=128, dead_every=5):
+    """Queries and a bank whose entries are multiples of 1/4 (exact in bf16,
+    and every dot product exact in fp32 whatever the summation order), so
+    the kernels must reproduce their plain versions bit for bit, ties
+    included: bank row j repeats row j - 1 at every multiple of 64 (each
+    wgmma tile, SIMT tile and split boundary), queries 0 and 1 are equal,
+    and every ``dead_every``-th bank row is dead."""
+    import numpy as np
+
+    a = rng.integers(0, 4, (n, d)).astype(np.float32) / 4
+    b = rng.integers(0, 4, (m, d)).astype(np.float32) / 4
+    if n > 1:
+        a[1] = a[0]
+    for j in range(64, m, 64):
+        b[j] = b[j - 1]
+    mask_b = np.ones(m, bool)
+    mask_b[2::dead_every] = False
+    return a, b, mask_b
+
+
+def check_edges(rng):
+    """The tile engine's edges, each held to the plain version bit for bit
+    on exact-arithmetic inputs (``_quarter_sets``): K2 at n = 1, at m = 1,
+    127, 129 and 8193 and at D = 256, exact and fast; K1 at capacity 2047
+    with one all-masked bank pair, and at 2 pairs of 256 queries (a split
+    bank, with a run of dead tiles inside it), exact and fast; K1 binary at
+    4, 8 and 64 words (the last 112 rows of each set dead), identical to
+    its plain version (idx at live queries) and to the popcount matcher
+    but for column ties (``_column_ties_only``)."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import BinaryDescriptors, Descriptors
+    from fastmatch_tpu_torch.interop import binary_descriptors_from_arrays
+    from fastmatch_tpu_torch.kernels import batch_match as k1
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.matching import hamming
+    from fastmatch_tpu_torch.matching.matcher import BIG, stack_matches
+
+    dev = torch.device(DEV)
+    out, bad = [], []
+
+    def same(x, y):
+        return bool(torch.equal(x, y))
+
+    for n, m, d in ((1, 300, 128), (300, 1, 128), (2048, 127, 128), (2048, 129, 128),
+                    (300, 8193, 128), (500, 1000, 256)):
+        a, b, mb = _quarter_sets(rng, n, m, d)
+        a, b, mb = (torch.from_numpy(x).to(dev) for x in (a, b, mb))
+        a2m = (a * a).sum(-1).contiguous()
+        b2m = torch.where(mb, (b * b).sum(-1), BIG).contiguous()
+        for fast in (False, True):
+            got = k2.distance_topk(a, b, b2m, a2m, fast=fast)
+            ref = k2.distance_topk_plain(a, b, b2m, a2m, fast=fast)
+            ok = all(same(x, y) for x, y in zip(got, ref))
+            out.append(dict(kernel="K2", shape=[n, m, d], fast=fast, identical=ok))
+            if not ok:
+                bad.append(out[-1])
+
+    def k1_case(what, B, n, m, dead_rows=None, masked_pair=None):
+        qs, bs, ma, mbs = [], [], [], []
+        for _ in range(B):
+            a, b, mb = _quarter_sets(rng, n, m)
+            if dead_rows is not None:
+                mb[dead_rows] = False
+            qs.append(a), bs.append(b), ma.append(np.ones(n, bool)), mbs.append(mb)
+        if masked_pair is not None:
+            mbs[masked_pair][:] = False
+        t = lambda x: torch.from_numpy(np.stack(x)).to(dev)  # noqa: E731
+        da, db = Descriptors(t(qs), t(ma)), Descriptors(t(bs), t(mbs))
+        for fast in (False, True):
+            got = k1.match_batch_fused(da, db, ratio=1.0, fast=fast)
+            ref = k1.match_batch_fused_plain(da, db, ratio=1.0, fast=fast)
+            ok = all(same(x, y) for x, y in zip(got, ref))
+            out.append(dict(kernel="K1", case=what, batch=B, shape=[n, m], fast=fast,
+                            identical=ok, n_valid=int(ref.valid.sum())))
+            if not ok:
+                bad.append(out[-1])
+
+    k1_case("capacity 2047, pair 1 all masked", 4, 2047, 2047, masked_pair=1)
+    k1_case("split bank, bank rows 512-767 dead", 2, 256, 2048, dead_rows=slice(512, 768))
+
+    for W in (4, 8, 64):
+        B, cap = 2, 512
+        words = rng.integers(0, 2 ** 32, size=(B, cap, W), dtype=np.uint64).astype(np.uint32)
+        other = words[:, rng.permutation(cap)].copy()
+        other[:, ::3] = rng.integers(0, 2 ** 32, size=other[:, ::3].shape,
+                                     dtype=np.uint64).astype(np.uint32)
+        mask = np.ones((B, cap), bool)
+        mask[:, 400:] = False
+        A = binary_descriptors_from_arrays(words, mask, dev)
+        Bk = binary_descriptors_from_arrays(other, mask, dev)
+        got = hamming.match_batch_hamming(A, Bk, backend="mxu", device=DEV)
+        plain = hamming._quarter(k1.match_batch_fused_plain(
+            Descriptors(A.packed, A.mask), Descriptors(Bk.packed, Bk.mask),
+            ratio=hamming._ratio_sqrt(0.8), fast=True, const_sq_norm=32.0 * W, binary=True))
+        anchor = stack_matches(hamming.match_pair_hamming_plain(
+            BinaryDescriptors(pa, ma), BinaryDescriptors(pb, mb))
+            for pa, ma, pb, mb in zip(A.packed, A.mask, Bk.packed, Bk.mask))
+        ties, ties_only = _column_ties_only(got, anchor, A, Bk)
+        # The plain version unpacks dead rows to zeros, where the kernel
+        # (like the JAX kernel) reads their words: a dead query's raw idx
+        # may differ; its decision (never valid) may not.
+        ok = (same(got.valid, plain.valid) and same(got.dist, plain.dist)
+              and same(got.idx[A.mask], plain.idx[A.mask]) and ties_only)
+        out.append(dict(kernel="K1 binary", words=W, batch=B, capacity=cap, identical=ok,
+                        column_ties=ties, n_valid=int(anchor.valid.sum())))
+        if not ok or int(anchor.valid.sum()) == 0:
+            bad.append(out[-1])
+    log("edges", json.dumps(out))
+    if bad:
+        raise AssertionError(f"tile engine edge cases differ from the plain versions: {bad}")
+    return out
+
+
+def sass_check():
+    """Tensor-core instructions in the built K1 and K2 libraries, per
+    kernel (``cuobjdump -sass``): each engine instance's mode is its first
+    template argument (0 exact, 1 bf16, 2 binary). Fast instances must
+    hold HGMMA, binary ones IGMMA, and exact ones (and the finalize
+    kernels) no tensor-core instruction at all (HMMA, IMMA, HGMMA, IGMMA:
+    TF32 runs on HMMA)."""
+    import re
+    import shutil
+
+    from fastmatch_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts, bad = {}, []
+    for lib in ("batch_match", "distance_topk"):
+        sass = subprocess.run([tool, "-sass", _build._target(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = f"{lib}:{line.split('Function :')[1].strip()}"
+                counts[fn] = dict(HGMMA=0, IGMMA=0, HMMA=0, IMMA=0)
+            elif fn is not None:
+                for op in counts[fn]:
+                    counts[fn][op] += f" {op}." in line or f" {op} " in line
+    for fn, c in counts.items():
+        mode = re.search(r"match_tilesILi(\d)E", fn)
+        mode = int(mode.group(1)) if mode else None
+        tensor = sum(c.values())
+        want = {1: c["HGMMA"] > 0, 2: c["IGMMA"] > 0}.get(mode, tensor == 0)
+        if not want:
+            bad.append((fn, c))
+    log("sass", json.dumps(counts))
+    if bad or not any("match_tilesILi1" in f for f in counts) or not any(
+            "match_tilesILi2" in f for f in counts):
+        raise AssertionError(f"SASS check failed: {bad}")
+    return counts
 
 
 def _window_union_bytes(stack, lyx, P):
@@ -519,38 +709,45 @@ def _window_union_bytes(stack, lyx, P):
 
 def check_k3(rng):
     """K3 at SIFT's orientation and descriptor patch shapes on a 640x480
-    frame (octave 0, 2048 keypoints); outputs must be bit-equal."""
+    frame, at each of the 4 octaves (2048 >> o keypoints; the orientation
+    stack padded by R + 1 = 9 cut into 19x19 patches, the descriptor stack
+    padded by 2 cut into 88x88 patches, 64x64 at octave 3 where the stack
+    is smaller); outputs must be bit-equal. Wrapper and plain ms at octave
+    0, device us per launch (profiler) and bound at every octave."""
     import torch
 
     from fastmatch_tpu_torch.kernels import patch_gather as k3
 
     dev = torch.device("cuda")
     details, entry = [], None
-    # (what, L, H, W, P): the orientation stack is padded by R+1 = 9 and
-    # cut 19x19 patches; the descriptor stack is padded by 2 and cut 88x88.
-    for what, L, H, W, P in (("orientation", 6, 498, 658, 19),
-                             ("descriptor", 6, 484, 644, 88)):
-        K = 2048
-        stack = torch.rand((L, H, W), device=dev)
-        lyx = torch.stack([torch.randint(1, 4, (K,), device=dev),
-                           torch.randint(-4, H - P + 4, (K,), device=dev),
-                           torch.randint(-4, W - P + 4, (K,), device=dev)], 1)
-        lyx = lyx.to(torch.int32).contiguous()
-        got = k3.gather_patches(stack, lyx, P)
-        ref = k3.gather_patches_plain(stack, lyx, P)
-        equal = bool(torch.equal(got, ref))
-        ms = cuda_ms(lambda: k3.gather_patches(stack, lyx, P))
-        plain_ms = cuda_ms(lambda: k3.gather_patches_plain(stack, lyx, P))
-        b_ms, b_by = bound(4 * K * P * P + _window_union_bytes(stack, lyx, P) + 12 * K)
-        d = dict(what=what, stack=[L, H, W], K=K, P=P, bit_equal=equal, ms=ms,
-                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        details.append(d)
-        log("K3", json.dumps(d))
-        if not equal:
-            raise AssertionError(f"K3 {what} patches differ from the plain version")
-        if what == "descriptor":
-            entry = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None)
+    for what, pad, P0 in (("orientation", 9, 19), ("descriptor", 2, 88)):
+        for o in range(4):
+            L, H, W = 6, (480 >> o) + 2 * pad, (640 >> o) + 2 * pad
+            P, K = min(P0, H, W), max(2048 >> o, 128)
+            stack = torch.rand((L, H, W), device=dev)
+            lyx = torch.stack([torch.randint(1, 4, (K,), device=dev),
+                               torch.randint(-4, H - P + 4, (K,), device=dev),
+                               torch.randint(-4, W - P + 4, (K,), device=dev)], 1)
+            lyx = lyx.to(torch.int32).contiguous()
+            got = k3.gather_patches(stack, lyx, P)
+            ref = k3.gather_patches_plain(stack, lyx, P)
+            equal = bool(torch.equal(got, ref))
+            us, seen = device_us(lambda: k3.gather_patches(stack, lyx, P),
+                                 {"gather_patches_kernel"}, n=50)
+            b_ms, b_by = bound(4 * K * P * P + _window_union_bytes(stack, lyx, P) + 12 * K)
+            d = dict(what=what, octave=o, stack=[L, H, W], K=K, P=P, bit_equal=equal,
+                     device_us_per_launch=us, profiled_launches=seen, bound_ms=b_ms,
+                     bound_by=b_by)
+            if o == 0:
+                d["ms"] = cuda_ms(lambda: k3.gather_patches(stack, lyx, P))
+                d["plain_ms"] = cuda_ms(lambda: k3.gather_patches_plain(stack, lyx, P))
+            details.append(d)
+            log("K3", json.dumps(d))
+            if not equal:
+                raise AssertionError(f"K3 {what} patches differ from the plain version")
+            if what == "descriptor" and o == 0:
+                entry = dict(max_abs_err=0.0, ms=d["ms"], plain_ms=d["plain_ms"],
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return entry, details
 
 
@@ -585,9 +782,11 @@ def _k4_cases(rng):
 
 def check_k4(rng):
     """K4 on ``_k4_cases``: relative error <= 1e-5 against the plain version
-    and two runs bit-identical in every case, the first run with the
-    offsets and the longest length given as BA gives them, the second
-    building them itself. Both variants (short, long) must run. Times
+    summed in float64 (the fp32 plain version adds by float atomics in no
+    fixed order, so its own error, recorded as ``plain_rel_err``, reaches
+    1e-5 on one 17788-row segment) and two runs bit-identical in every
+    case, the first run with the offsets and the longest length given as
+    BA gives them, the second building them itself. Both variants (short, long) must run. Times
     (wrapper ms by CUDA events; device us per launch by the profiler at the
     BA shapes) with the offsets given, beside ``torch.segment_reduce``; the
     edge cases' times are of 3 batches of 20 calls."""
@@ -609,9 +808,10 @@ def check_k4(rng):
         got = k4.sorted_segment_sum(vals, seg, n_seg, off, max_len)
         variant = [k for k, v in k4.sorted_segment_sum.by_variant.items() if v > before[k]]
         again = k4.sorted_segment_sum(vals, seg, n_seg)
-        ref = k4.segment_sum_plain(vals, seg, n_seg)
+        ref = k4.segment_sum_plain(vals.double(), seg, n_seg)
         scale = ref.abs().max().clamp(min=1e-30)
         rel = ((got - ref).abs().max() / scale).item()
+        plain_rel = ((k4.segment_sum_plain(vals, seg, n_seg) - ref).abs().max() / scale).item()
         same = bool(torch.equal(got, again))
         lo, hi = off[[0, -1]].tolist()
         inside, lengths = vals[lo:hi], k4.segment_lengths(off).long()
@@ -627,7 +827,7 @@ def check_k4(rng):
         # The rows inside [0, n) and the offsets read once, the sums written once.
         b_ms, b_by = bound(4 * ((hi - lo) * D + n_seg + 1 + n_seg * D), (hi - lo) * D)
         d = dict(what=what, rows=O, cols=D, segments=n_seg, rows_in_range=hi - lo,
-                 longest=max_len, variant=variant, rel_err=rel,
+                 longest=max_len, variant=variant, rel_err=rel, plain_rel_err=plain_rel,
                  max_abs_err=(got - ref).abs().max().item(), bit_identical_runs=same,
                  ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                  device_us_per_launch=dev_us, profiled_launches=seen, bound_ms=b_ms,
@@ -957,11 +1157,12 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     entries = {}
-    details = {}
+    details = {"sass": phase("sass_check", sass_check)}
     for name, fn in (("distance_topk", check_k2), ("gather_patches", check_k3),
                      ("sorted_segment_sum", check_k4), ("batch_match", check_k1),
                      ("sorted_gather_rows", check_k5)):
         entries[name], details[name] = phase(f"check_{name}", fn, rng)
+    details["edges"] = phase("check_edges", check_edges, rng)
     details["host_breakdown_us"] = phase("host_breakdown", host_breakdown)
 
     phase("small_reference", small_reference)

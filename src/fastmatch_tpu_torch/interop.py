@@ -6,10 +6,9 @@ out and build the port's containers, so both packages can run on identical
 inputs: descriptors, a bundle-adjustment problem, a reconstruction's map
 state and the configuration dataclasses.
 
-These helpers carry the JAX side's state into tests and checks; they are no
-entry point of the system, so their own ``device`` defaults to the CPU.
-``descriptors_from_numpy``, re-exported from ``core.containers``, is an
-entry point and defaults to the card like every other.
+Every constructor here takes ``device=None`` and resolves it as every
+entry point of the port does (``core.device.resolve_device``): the card
+unless the caller asks for the CPU, as the CPU tests do.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from fastmatch_tpu_torch.ba.problem import BAProblem, Observations
 from fastmatch_tpu_torch.core.camera import Pinhole
 from fastmatch_tpu_torch.core.containers import (BinaryDescriptors, Descriptors,
                                                  descriptors_from_numpy, pad_to_capacity)
+from fastmatch_tpu_torch.core.device import resolve_device
 from fastmatch_tpu_torch.core.lie import SE3
 from fastmatch_tpu_torch.features.sift import SIFTConfig
 from fastmatch_tpu_torch.pipeline import config as _config
@@ -45,17 +45,18 @@ MAP_COUNTERS = ("n_frames", "n_points", "n_obs")
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
+    device = resolve_device(device)
     t = torch.from_numpy(np.array(a, copy=True))
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def descriptors_from_arrays(data, mask, device="cpu") -> Descriptors:
+def descriptors_from_arrays(data, mask, device=None) -> Descriptors:
     """Descriptors from a (C, D) float array and its (C,) mask as given
     (no re-padding)."""
     return Descriptors(_t(data, device, torch.float32), _t(mask, device, torch.bool))
 
 
-def batched_descriptors_from_numpy(descs, capacity: int, device="cpu") -> Descriptors:
+def batched_descriptors_from_numpy(descs, capacity: int, device=None) -> Descriptors:
     """Batched Descriptors (B, capacity, D) from a list of (N_i, D) float
     arrays, each padded to ``capacity`` (truncated above it) as
     ``descriptors_from_numpy`` pads one set."""
@@ -64,7 +65,7 @@ def batched_descriptors_from_numpy(descs, capacity: int, device="cpu") -> Descri
                                    np.stack([m for _, m in padded]), device)
 
 
-def binary_descriptors_from_arrays(packed, mask, device="cpu") -> BinaryDescriptors:
+def binary_descriptors_from_arrays(packed, mask, device=None) -> BinaryDescriptors:
     """BinaryDescriptors from a (..., C, W) uint32 array and its (..., C)
     mask as given; the words are held in an int32 tensor with the same
     bits."""
@@ -73,7 +74,7 @@ def binary_descriptors_from_arrays(packed, mask, device="cpu") -> BinaryDescript
 
 
 def ba_problem_from_numpy(R, t, points, cam_idx, pt_idx, uv, obs_mask, cam_mask,
-                          pt_mask, fixed_cams, device="cpu") -> BAProblem:
+                          pt_mask, fixed_cams, device=None) -> BAProblem:
     """A BAProblem from numpy arrays: poses (C, 3, 3)/(C, 3), points (P, 3),
     the observation table (O,) x 3 + uv (O, 2), and the camera/point/gauge
     masks."""
@@ -116,10 +117,10 @@ def config_from(other) -> _config.PipelineConfig:
     )
 
 
-def reconstruction_from_numpy(state, cfg, camera: Pinhole, device="cpu") -> Reconstruction:
+def reconstruction_from_numpy(state, cfg, camera: Pinhole, device=None) -> Reconstruction:
     """A Reconstruction whose map state is copied from ``state`` (a dict, or
     any object with the JAX Reconstruction's attribute names)."""
-    rec = Reconstruction(cfg=cfg, camera=camera, device=torch.device(device))
+    rec = Reconstruction(cfg=cfg, camera=camera, device=resolve_device(device))
 
     def get(name):
         return state[name] if isinstance(state, dict) else getattr(state, name)

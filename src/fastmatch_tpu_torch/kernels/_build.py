@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``_build/<name>-<hash>.so`` inside the package (the hash covers the source
-and the flags, so an edited source rebuilds). ``build_all`` starts one
+``_build/<name>-<hash>.so`` inside the package (the hash covers the source,
+every ``csrc/*.cuh`` it includes and the flags, so an edited source or
+header rebuilds). ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them. Nothing is built when
 a module is imported: the first launch of a kernel builds it.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -40,9 +42,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: list) -> list:
+    """``path`` and, depth first, every file of ``CSRC`` it includes with
+    quotes, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as fh:
+        text = fh.read()
+    for inc in _INCLUDE.findall(text):
+        _sources(os.path.join(CSRC, inc.decode()), seen)
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(os.path.join(CSRC, f"{name}.cu"), []):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -30,19 +30,25 @@ import torch
 
 from fastmatch_tpu_torch.core.containers import Descriptors, Matches, unpack_bits_signed
 from fastmatch_tpu_torch.kernels import _build
-from fastmatch_tpu_torch.kernels.distance_topk import plain_top2
+from fastmatch_tpu_torch.kernels.distance_topk import plain_top2, sm_count, split_plan
 from fastmatch_tpu_torch.matching.matcher import BIG
 
 # The JAX package's dispatch limit (its VMEM-resident layout): match_batch
 # sends larger banks to the per-pair path, so both packages decide alike.
 MAX_RESIDENT_M = 4096
 MAX_WORDS = 64    # packed words per binary row the kernel takes
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_void_p] * 7)
+MAX_DIM = 256     # float depth the kernel takes (csrc/match_tile.cuh)
+# Blocks of each mode (exact, fast, binary) that share one SM at config 2's
+# widths: the split plan fills the card once with them.
+_BLOCKS_PER_SM = (1, 2, 2)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10)
 
 
 def _prepare(desc_a: Descriptors, desc_b: Descriptors, ratio, fast, const_sq_norm, binary):
-    """The JAX wrapper's checks and prologue: (op_a, op_b, a2m, b2m, r2)."""
+    """The JAX wrapper's checks and prologue: (op_a, op_b, a2m, b2m, r2,
+    (a2, b2)), the last the unmasked squared norms ((B, N), (B, M), or one
+    0-dim constant)."""
     a, b = desc_a.data, desc_b.data
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0]:
         raise ValueError(f"expected (B, N, D) and (B, M, D) descriptors, got "
@@ -70,7 +76,8 @@ def _prepare(desc_a: Descriptors, desc_b: Descriptors, ratio, fast, const_sq_nor
     else:
         if not fast:
             a, b = a.float(), b.float()
-        a2 = b2 = torch.tensor(np.float32(const_sq_norm), device=a.device)
+        # A fill, not a copy from the host: no wait for the stream.
+        a2 = b2 = torch.full((), float(np.float32(const_sq_norm)), device=a.device)
     a2m = torch.where(desc_a.mask, a2, BIG).contiguous()
     b2m = torch.where(desc_b.mask, b2, BIG).contiguous()
     r2 = float(np.float32(ratio) * np.float32(ratio))
@@ -80,7 +87,25 @@ def _prepare(desc_a: Descriptors, desc_b: Descriptors, ratio, fast, const_sq_nor
         op_a, op_b = -2.0 * a, b
         if fast:
             op_a, op_b = op_a.to(torch.bfloat16), op_b.to(torch.bfloat16)
-    return op_a.contiguous(), op_b.contiguous(), a2m, b2m, r2
+    return op_a.contiguous(), op_b.contiguous(), a2m, b2m, r2, (a2, b2)
+
+
+def unpack_pm1(words: torch.Tensor) -> torch.Tensor:
+    """The binary kernel's unpack: (..., W) packed words (int32-held) ->
+    (..., 32 W) int8 of +-1, bit k of word w at depth 32 w + k (1 -> +1,
+    0 -> -1)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return (2 * bits - 1).to(torch.int8).reshape(*words.shape[:-1], -1)
+
+
+def binary_neg2_plain(op_a: torch.Tensor, op_b: torch.Tensor) -> torch.Tensor:
+    """-2 times the +-1 dot products of packed rows, as the binary kernel
+    forms them: int8 +-1 operands, int32 sums. Equals 4 * hamming -
+    2 * n_bits exactly."""
+    a = unpack_pm1(op_a).to(torch.int32)
+    b = unpack_pm1(op_b).to(torch.int32)
+    return -2 * (a @ b.transpose(-1, -2))
 
 
 def _plain(op_a, op_b, a2m, b2m, r2, mask_a, mask_b, cross_check, fast, binary) -> Matches:
@@ -115,7 +140,7 @@ def match_batch_fused_plain(desc_a: Descriptors, desc_b: Descriptors, ratio=0.8,
                             const_sq_norm: float | None = None,
                             binary: bool = False) -> Matches:
     """Plain PyTorch version of the kernel: batched Matches (B, N)."""
-    op_a, op_b, a2m, b2m, r2 = _prepare(desc_a, desc_b, ratio, fast, const_sq_norm, binary)
+    op_a, op_b, a2m, b2m, r2, _ = _prepare(desc_a, desc_b, ratio, fast, const_sq_norm, binary)
     return _plain(op_a, op_b, a2m, b2m, r2, desc_a.mask, desc_b.mask, cross_check,
                   fast, binary)
 
@@ -127,7 +152,8 @@ def match_batch_fused(desc_a: Descriptors, desc_b: Descriptors, ratio=0.8,
     """Kernel entry. desc_a (B, N, D) / desc_b (B, M, D) with (B, N) / (B, M)
     masks; float32 data, or packed int32 words with ``binary=True`` (which
     needs ``fast=True`` and ``const_sq_norm=32*W``). Returns Matches (B, N)."""
-    op_a, op_b, a2m, b2m, r2 = _prepare(desc_a, desc_b, ratio, fast, const_sq_norm, binary)
+    op_a, op_b, a2m, b2m, r2, norms = _prepare(desc_a, desc_b, ratio, fast, const_sq_norm,
+                                               binary)
     dev = op_a.device
     if dev.type == "cpu":
         return _plain(op_a, op_b, a2m, b2m, r2, desc_a.mask, desc_b.mask, cross_check,
@@ -139,21 +165,30 @@ def match_batch_fused(desc_a: Descriptors, desc_b: Descriptors, ratio=0.8,
             raise ValueError(f"{name} is on {t.device}, not {dev}")
     B, n, d = op_a.shape
     m = op_b.shape[1]
+    if not binary and d > MAX_DIM:
+        raise ValueError(f"descriptor dim {d} exceeds the kernel's {MAX_DIM}")
     fn = _build.entry("batch_match", "fm_batch_match", _ARGTYPES)
-    idx = torch.empty((B, n), dtype=torch.int32, device=dev)
-    dist = torch.empty((B, n), dtype=torch.float32, device=dev)
-    valid = torch.empty((B, n), dtype=torch.bool, device=dev)
-    d2 = torch.empty((B, n), dtype=torch.float32, device=dev)
-    t1 = torch.empty((B, n), dtype=torch.float32, device=dev)
-    col_key = torch.empty((B, m) if cross_check else (1,), dtype=torch.int64, device=dev)
     mode = 2 if binary else 1 if fast else 0  # csrc/batch_match.cu: fm_batch_match
+    splits, width = split_plan(B, n, m, sm_count(dev) * _BLOCKS_PER_SM[mode])
+    # One allocation: the column keys (8-byte aligned first), the (splits,
+    # B, n) partials, idx and dist; valid is its own bool tensor.
+    keys = 2 * B * m if cross_check else 2
+    buf = torch.empty(keys + 3 * splits * B * n + 2 * B * n, dtype=torch.float32, device=dev)
+    idx, dist = buf[keys + 3 * splits * B * n:].view(2, B, n)
+    valid = torch.empty((B, n), dtype=torch.bool, device=dev)
+    # The kernel skips dead bank tiles where the unmasked norms bound its
+    # candidates there to exactly BIG (csrc/match_tile.cuh); a constant
+    # norm (binary) passes as null.
+    a2raw, b2raw = (t.data_ptr() if t.dim() else None for t in norms)
+    base = buf.data_ptr()
+    part = base + 4 * keys
     P = _build.ptr
-    rc = fn(P(op_a), P(op_b), P(a2m), P(b2m), B, n, m, d, mode, int(cross_check),
-            d * 32 if binary else 0, r2, P(col_key), P(idx), P(dist), P(valid), P(d2),
-            P(t1), _build.stream_of(op_a))
+    rc = fn(P(op_a), P(op_b), P(a2m), P(b2m), B, n, m, d, mode, int(cross_check), r2, splits,
+            width, a2raw, b2raw, part, part + 4 * splits * B * n, part + 8 * splits * B * n,
+            base, P(idx), P(dist), P(valid), _build.stream_of(op_a))
     _build.check(rc, "match_batch_fused")
     match_batch_fused.launches += 1
-    return Matches(idx=idx, dist=dist, valid=valid)
+    return Matches(idx=idx.view(torch.int32), dist=dist, valid=valid)
 
 
 match_batch_fused.launches = 0

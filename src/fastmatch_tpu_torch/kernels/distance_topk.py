@@ -23,10 +23,33 @@ from fastmatch_tpu_torch.core.containers import Descriptors, Matches
 from fastmatch_tpu_torch.kernels import _build
 from fastmatch_tpu_torch.matching.matcher import BIG
 
-_TN = 32          # query rows per block (csrc/distance_topk.cu)
-_TM = 64          # bank columns per tile
-_TARGET_BLOCKS = 264  # two waves of the H100's 132 SMs
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 9
+_BQ = 128         # query rows per block (csrc/match_tile.cuh)
+_BN = 128         # bank rows per tile
+# Blocks of each mode that share one SM (shared memory and registers at
+# D = 128): the split plan fills the card once with them.
+_BLOCKS_PER_SM = {False: 1, True: 2}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 9
+_SM_COUNT: dict = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of a CUDA device, read once per device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
+def split_plan(pairs: int, n: int, m: int, slots: int):
+    """(splits, cols_per_split) of banks of ``m`` rows for ``pairs`` pairs
+    of ``n`` queries, a block per 128 queries: as many bank splits as keep
+    the grid within ``slots`` concurrent blocks, each a whole number of
+    128-row tiles, with no empty split."""
+    tiles = -(-m // _BN)
+    splits = max(1, min(tiles, slots // (pairs * -(-n // _BQ))))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per * _BN
 
 
 def plain_top2(srow: torch.Tensor):
@@ -53,6 +76,48 @@ def distance_topk_plain(a, b, b2m, a2m, fast: bool = False):
     cm = scol.min(dim=0, keepdim=True).values
     row = torch.arange(a.shape[0], device=a.device)[:, None]
     nnb = torch.where(scol == cm, row, a.shape[0]).min(dim=0).values
+    return i1.to(torch.int32), d1, d2, nnb.to(torch.int32)
+
+
+def order_key(v: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """The kernels' 64-bit column key as a signed int64 with the same order:
+    (order-preserving float bits, then the row). ``-0`` keys as ``+0``."""
+    u = (v + 0.0).view(torch.int32)
+    sk = torch.where(u < 0, -1 - (u & 0x7FFFFFFF), u).to(torch.int64)
+    return sk * (1 << 32) + row.to(torch.int64)
+
+
+def merge_top2(v1, i1, v2, ov1, oi1, ov2):
+    """The kernels' merge of two (v1, i1, v2) summaries, elementwise: the
+    lower v1 wins, an equal v1 goes to the lower index."""
+    take = (ov1 < v1) | ((ov1 == v1) & (oi1 < i1))
+    v2 = torch.where(take, torch.minimum(ov2, v1), torch.minimum(v2, ov1))
+    return torch.where(take, ov1, v1), torch.where(take, oi1, i1), v2
+
+
+def distance_topk_split_plain(a, b, b2m, a2m, cols_per_split: int, fast: bool = False):
+    """The kernel's own reduction order in plain PyTorch: the row top-2 of
+    each bank range of ``cols_per_split`` rows (a split), merged in split
+    order with ``merge_top2``, and each column's minimum ``order_key`` over
+    the queries. Returns what ``distance_topk_plain`` returns; the two
+    agree exactly."""
+    if fast:
+        a = a.to(torch.bfloat16).float()
+        b = b.to(torch.bfloat16).float()
+    neg2 = -2.0 * (a @ b.T)
+    n, m = neg2.shape
+    v1 = i1 = v2 = None
+    for c0 in range(0, m, cols_per_split):
+        sv1, si1, sv2 = plain_top2(neg2[:, c0:c0 + cols_per_split]
+                                   + b2m[None, c0:c0 + cols_per_split])
+        if v1 is None:
+            v1, i1, v2 = sv1, si1 + c0, sv2
+        else:
+            v1, i1, v2 = merge_top2(v1, i1, v2, sv1, si1 + c0, sv2)
+    d1 = torch.clamp(v1 + a2m, min=0.0)
+    d2 = torch.clamp(v2 + a2m, min=0.0)
+    row = torch.arange(n, device=a.device)[:, None].expand(n, m)
+    nnb = order_key(neg2 + a2m[:, None], row).min(dim=0).values & 0xFFFFFFFF
     return i1.to(torch.int32), d1, d2, nnb.to(torch.int32)
 
 
@@ -83,25 +148,22 @@ def distance_topk(a, b, b2m, a2m, fast: bool = False):
     fn = _build.entry("distance_topk", "fm_distance_topk", _ARGTYPES)
     n, d = a.shape
     m = b.shape[0]
-    row_blocks = -(-n // _TN)
-    tiles = -(-m // _TM)
-    splits = max(1, min(tiles, -(-_TARGET_BLOCKS // row_blocks)))
-    dev = a.device
-    part_v1 = torch.empty((splits, n), dtype=torch.float32, device=dev)
-    part_i1 = torch.empty((splits, n), dtype=torch.int32, device=dev)
-    part_v2 = torch.empty((splits, n), dtype=torch.float32, device=dev)
-    col_key = torch.empty((m,), dtype=torch.int64, device=dev)
-    idx1 = torch.empty((n,), dtype=torch.int32, device=dev)
-    d1 = torch.empty((n,), dtype=torch.float32, device=dev)
-    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
-    nnb = torch.empty((m,), dtype=torch.int32, device=dev)
+    splits, width = split_plan(1, n, m, sm_count(a.device) * _BLOCKS_PER_SM[fast])
+    if fast:  # the kernel reads bf16 rows: the same rounding as on load
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    # One allocation: the column keys (8-byte aligned first), the four
+    # outputs, then the (splits, n) partials.
+    buf = torch.empty(2 * m + 3 * n + m + 3 * splits * n, dtype=torch.float32, device=a.device)
+    _, idx1, d1, d2, nnb, _ = buf.split((2 * m, n, n, n, m, 3 * splits * n))
+    base = buf.data_ptr()
+    part = base + 4 * (3 * m + 3 * n)
     P = _build.ptr
-    rc = fn(P(a), P(b), P(b2m), P(a2m), n, m, d, int(fast), splits,
-            P(part_v1), P(part_i1), P(part_v2), P(col_key), P(idx1), P(d1),
-            P(d2), P(nnb), _build.stream_of(a))
+    rc = fn(P(a), P(b), P(b2m), P(a2m), n, m, d, int(fast), splits, width,
+            part, part + 4 * splits * n, part + 8 * splits * n, base,
+            P(idx1), P(d1), P(d2), P(nnb), _build.stream_of(a))
     _build.check(rc, "distance_topk")
     distance_topk.launches += 1
-    return idx1, d1, d2, nnb
+    return idx1.view(torch.int32), d1, d2, nnb.view(torch.int32)
 
 
 distance_topk.launches = 0

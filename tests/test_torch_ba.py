@@ -174,7 +174,7 @@ def test_segment_keys_offsets(table):
     # ba_solve's point-sorted table (camera keys unsorted) and a shuffled
     # table with neither key sorted; the dead rows are keyed to point and
     # camera 0 and count in those segments, as on the card.
-    prob = ba_problem_from_numpy(*problem_arrays(seed=5, shuffle=True))
+    prob = ba_problem_from_numpy(*problem_arrays(seed=5, shuffle=True), device="cpu")
     if table == "point_sorted":
         prob = tlm.sort_obs_by_point(prob)
     obs = prob.obs
@@ -240,12 +240,12 @@ def test_ba_solve_through_k5_is_bit_identical(monkeypatch):
         return real(table, seg, out=out)
 
     monkeypatch.setattr(tschur, "sorted_gather_rows", spy)
-    new = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
+    new = tlm.ba_solve(ba_problem_from_numpy(*arrs, device="cpu"), device="cpu", **kw)
     # Every gather is of 3 columns and writes into the solve's buffer.
     assert len(calls) > 3 and all(c == (c[0], True) and c[0][1] == 3 for c in calls)
     monkeypatch.setattr(tschur, "sorted_gather_rows",
                         lambda table, seg, out=None: table[seg.long()])
-    old = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
+    old = tlm.ba_solve(ba_problem_from_numpy(*arrs, device="cpu"), device="cpu", **kw)
     for a, b in ((new.poses.R, old.poses.R), (new.poses.t, old.poses.t),
                  (new.points, old.points), (new.cost, old.cost), (new.cost0, old.cost0)):
         assert torch.equal(a, b)
@@ -258,7 +258,7 @@ def test_ba_solve_through_k5_is_bit_identical(monkeypatch):
 def test_assemble_vs_jax():
     arrs = problem_arrays(seed=1, outliers=20)
     jp = jlm.sort_obs_by_point(jax_problem(arrs))
-    tp = tlm.sort_obs_by_point(ba_problem_from_numpy(*arrs))
+    tp = tlm.sort_obs_by_point(ba_problem_from_numpy(*arrs, device="cpu"))
     np.testing.assert_array_equal(tp.obs.pt_idx.numpy(), np.asarray(jp.obs.pt_idx))
     np.testing.assert_array_equal(tp.obs.cam_idx.numpy(), np.asarray(jp.obs.cam_idx))
     hub = 2.0 / 500.0
@@ -273,7 +273,7 @@ def test_assemble_vs_jax():
 def test_pcg_and_back_substitution_vs_jax():
     arrs = problem_arrays(seed=2)
     jp = jlm.sort_obs_by_point(jax_problem(arrs))
-    tp = tlm.sort_obs_by_point(ba_problem_from_numpy(*arrs))
+    tp = tlm.sort_obs_by_point(ba_problem_from_numpy(*arrs, device="cpu"))
     jsys, _ = jschur.assemble(jp.poses, jp.points, jp.obs, 6, 150)
     tsys, _ = tschur.assemble(tp.poses, tp.points, tp.obs, 6, 150)
     upd = (arrs[7] & ~arrs[9]).astype(np.float32)
@@ -296,7 +296,7 @@ def test_ba_solve_vs_jax(case):
     kw = dict(max_iters=10, pcg_iters=30,
               huber_delta_static=(2.0 / 500.0) if outliers else None)
     jres = jlm.ba_solve(jax_problem(arrs), **kw)
-    tres = tlm.ba_solve(ba_problem_from_numpy(*arrs), device="cpu", **kw)
+    tres = tlm.ba_solve(ba_problem_from_numpy(*arrs, device="cpu"), device="cpu", **kw)
     np.testing.assert_allclose(float(tres.cost0), float(jres.cost0), rtol=1e-4)
     np.testing.assert_allclose(float(tres.cost), float(jres.cost), rtol=1e-4,
                                atol=1e-4 * float(jres.cost0))
@@ -313,7 +313,7 @@ def test_compact_obs_and_bucket_vs_jax():
     n_live = int(arrs[6].sum())
     for b in (jtracker.obs_bucket(n_live, 4096), n_live):
         jc = jtracker.compact_obs(jax_problem(arrs), b)
-        tc = ttracker.compact_obs(ba_problem_from_numpy(*arrs), b)
+        tc = ttracker.compact_obs(ba_problem_from_numpy(*arrs, device="cpu"), b)
         for name in ("cam_idx", "pt_idx", "uv", "mask"):
             np.testing.assert_array_equal(getattr(tc.obs, name).numpy(),
                                           np.asarray(getattr(jc.obs, name)))
@@ -343,4 +343,4 @@ def test_ba_solve_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
-        tlm.ba_solve(ba_problem_from_numpy(*problem_arrays()))
+        tlm.ba_solve(ba_problem_from_numpy(*problem_arrays(), device="cpu"))

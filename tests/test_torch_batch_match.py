@@ -32,9 +32,11 @@ from fastmatch_tpu.utils.evaluation import match_agreement as j_match_agreement
 from fastmatch_tpu_torch.core.containers import (BinaryDescriptors, Descriptors,
                                                  binary_descriptors_from_numpy, pack_bits,
                                                  unpack_bits_signed)
-from fastmatch_tpu_torch.interop import (batched_descriptors_from_numpy,
+from fastmatch_tpu_torch.interop import (ba_problem_from_numpy,
+                                         batched_descriptors_from_numpy,
                                          binary_descriptors_from_arrays,
-                                         descriptors_from_arrays)
+                                         descriptors_from_arrays,
+                                         reconstruction_from_numpy)
 from fastmatch_tpu_torch.kernels import batch_match as k1
 from fastmatch_tpu_torch.kernels import distance_topk as k2
 from fastmatch_tpu_torch.matching import hamming as tham
@@ -87,7 +89,8 @@ def _jax(a, ma, b, mb):
 
 
 def _port(a, ma, b, mb):
-    return descriptors_from_arrays(a, ma), descriptors_from_arrays(b, mb)
+    return (descriptors_from_arrays(a, ma, device="cpu"),
+            descriptors_from_arrays(b, mb, device="cpu"))
 
 
 def _assert_same(port, ref, exact_dist=False):
@@ -256,7 +259,8 @@ def test_binary_containers_vs_jax():
     np.testing.assert_array_equal(port.packed.numpy().view(np.uint32), np.asarray(ref.packed))
     np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
     assert port.n_bits == ref.n_bits == 256 and int(port.count()) == int(ref.count()) == 300
-    arr = binary_descriptors_from_arrays(np.asarray(ref.packed), np.asarray(ref.mask))
+    arr = binary_descriptors_from_arrays(np.asarray(ref.packed), np.asarray(ref.mask),
+                                         device="cpu")
     assert torch.equal(arr.packed, port.packed)
     with pytest.raises(ValueError):
         binary_descriptors_from_numpy(words.astype(np.int64))
@@ -297,7 +301,8 @@ def banks():
 
 
 def _port_binary(j):
-    return binary_descriptors_from_arrays(np.asarray(j.packed), np.asarray(j.mask))
+    return binary_descriptors_from_arrays(np.asarray(j.packed), np.asarray(j.mask),
+                                          device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["popcount", "mxu"])
@@ -335,7 +340,7 @@ def test_match_batch_hamming_vs_jax(banks):
 def test_batched_descriptors_from_numpy():
     rng = np.random.default_rng(4)
     sets = [_unit(rng, n) for n in (10, 300, 40)]
-    d = batched_descriptors_from_numpy(sets, 256)
+    d = batched_descriptors_from_numpy(sets, 256, device="cpu")
     assert d.data.shape == (3, 256, 128) and d.mask.sum(-1).tolist() == [10, 256, 40]
     np.testing.assert_array_equal(d.data.numpy()[0, :10], sets[0])
     assert (d.data.numpy()[0, 10:] == 0).all()
@@ -347,8 +352,17 @@ def test_default_device_is_cuda(banks):
     ta, tb = _port_binary(banks[0]), _port_binary(banks[1])
     stack = lambda d: BinaryDescriptors(d.packed[None], d.mask[None])
     da = Descriptors(torch.zeros((1, 8, 128)), torch.ones((1, 8), dtype=torch.bool))
+    z = np.zeros
+    # The interop constructors resolve their device before reading any input.
     for call in (lambda: match_batch(da, da),
                  lambda: tham.match_batch_hamming(stack(ta), stack(tb)),
-                 lambda: tham.match_pair_hamming(ta, tb)):
+                 lambda: tham.match_pair_hamming(ta, tb),
+                 lambda: descriptors_from_arrays(z((4, 128)), z(4, bool)),
+                 lambda: batched_descriptors_from_numpy([z((3, 128))], 8),
+                 lambda: binary_descriptors_from_arrays(z((4, 8), np.uint32), z(4, bool)),
+                 lambda: ba_problem_from_numpy(z((1, 3, 3)), z((1, 3)), z((2, 3)), z(2), z(2),
+                                               z((2, 2)), z(2, bool), z(1, bool), z(2, bool),
+                                               z(1, bool)),
+                 lambda: reconstruction_from_numpy({}, None, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -20,14 +20,18 @@ import torch
 
 from fastmatch_tpu.core.containers import Descriptors as JDescriptors
 from fastmatch_tpu.core.containers import descriptors_from_numpy as j_descriptors_from_numpy
+from fastmatch_tpu.kernels.distance_topk import _chunked_topk as j_chunked_topk
 from fastmatch_tpu.kernels.distance_topk import distance_topk as j_distance_topk
 from fastmatch_tpu.kernels.distance_topk import match_pair_pallas
+from fastmatch_tpu.matching.hamming import hamming_distance_matrix as j_hamming_distance_matrix
 from fastmatch_tpu.matching.matcher import BIG as J_BIG
 from fastmatch_tpu.matching.matcher import match_pair_jnp
 from synth import corresponding_descriptors, random_descriptors
 
 from fastmatch_tpu_torch.interop import descriptors_from_arrays, descriptors_from_numpy
+from fastmatch_tpu_torch.kernels import batch_match as k1
 from fastmatch_tpu_torch.kernels import distance_topk as k2
+from fastmatch_tpu_torch.matching import hamming as tham
 from fastmatch_tpu_torch.matching.matcher import BIG, match_pair, match_pair_plain
 
 torch.set_num_threads(1)
@@ -38,7 +42,8 @@ def _both(a, b, mask_a=None, mask_b=None):
     mask_b = np.ones(len(b), bool) if mask_b is None else mask_b
     jd = (JDescriptors(jnp.asarray(a), jnp.asarray(mask_a)),
           JDescriptors(jnp.asarray(b), jnp.asarray(mask_b)))
-    td = (descriptors_from_arrays(a, mask_a), descriptors_from_arrays(b, mask_b))
+    td = (descriptors_from_arrays(a, mask_a, device="cpu"),
+          descriptors_from_arrays(b, mask_b, device="cpu"))
     return jd, td
 
 
@@ -251,3 +256,78 @@ def test_default_device_is_cuda(rng):
     _, (ta, tb) = _both(random_descriptors(rng, 8), random_descriptors(rng, 8))
     with pytest.raises(RuntimeError, match="CUDA"):
         match_pair(ta, tb)
+
+
+def _exact_sets(rng, n, m, w):
+    """Queries and a bank whose entries are multiples of 1/4, so every dot
+    product and norm is exact in float32 whatever the summation order: the
+    JAX package, the plain versions and the split model must agree bit for
+    bit. Bank rows repeat across every split boundary k * w (a tie the
+    lower index must win), queries 0 and 1 are equal (a column tie the
+    lower query must win), and every fifth bank row is dead."""
+    a = rng.integers(0, 4, (n, 128)).astype(np.float32) / 4
+    b = rng.integers(0, 4, (m, 128)).astype(np.float32) / 4
+    a[1] = a[0]
+    for k in range(w, m, w):
+        b[k] = b[k - 1]
+    a2 = (a * a).sum(1)
+    b2 = (b * b).sum(1)
+    b2[2::5] = J_BIG
+    return a, b, b2, a2
+
+
+@pytest.mark.parametrize("w", [1, 63, 64, 65, 4097])
+def test_split_model_vs_jax(w):
+    # K2's split-and-merge (distance_topk_split_plain) at width w and at the
+    # kernel's own plan for this shape (132 SMs, both modes), against the
+    # unsplit plain version and the JAX kernel (its 4096-row chunked merge
+    # above MAX_RESIDENT_M), all exactly.
+    rng = np.random.default_rng(w)
+    n, m = 24, 2 * w + 3
+    a, b, b2, a2 = _exact_sets(rng, n, m, w)
+    if m <= 4096:
+        jout = j_distance_topk(*(jnp.asarray(x) for x in (a, b, b2, a2)), interpret=True)
+    else:
+        jout = j_chunked_topk(*(jnp.asarray(x) for x in (a, b, b2, a2)), n, True)
+    ta, tb, tb2, ta2 = (torch.from_numpy(x) for x in (a, b, b2, a2))
+    plain = k2.distance_topk_plain(ta, tb, tb2, ta2)
+    widths = {w} | {k2.split_plan(1, n, m, 132 * k2._BLOCKS_PER_SM[f])[1] for f in (False, True)}
+    for width in sorted(widths):
+        split = k2.distance_topk_split_plain(ta, tb, tb2, ta2, width)
+        for got, ref, jref in zip(split, plain, jout):
+            np.testing.assert_array_equal(got.numpy(), ref.numpy())
+            # the chunked path's nnb runs over its dead padding rows too
+            np.testing.assert_array_equal(got.numpy(), np.asarray(jref)[:len(got)])
+    assert plain[0][0] == plain[0][1]  # the equal queries picked the same row
+
+
+def test_split_plan_fills_the_card():
+    # The main path's shapes give one wave of whole-tile splits.
+    for m, fast, want in ((8192, False, (8, 1024)), (2048, False, (8, 256)),
+                          (8192, True, (16, 512)), (2048, True, (16, 128))):
+        assert k2.split_plan(1, 2048, m, 132 * k2._BLOCKS_PER_SM[fast]) == want
+    assert k2.split_plan(1, 1, 1, 132) == (1, 128)
+    assert k2.split_plan(64, 2048, 2048, 132) == (1, 2048)  # config 2: no split
+    assert k2.split_plan(2, 256, 2048, 264) == (16, 128)  # a small batch splits
+    splits, width = k2.split_plan(1, 1, 8193, 132)
+    assert width % 128 == 0 and (splits - 1) * width < 8193 <= splits * width
+
+
+@pytest.mark.parametrize("words", [4, 8, 64])
+def test_binary_route_is_popcount(words):
+    # K1's binary route: +-1 int8 operands summed in int32 give -2 * dot =
+    # 4 * hamming - 2 * n_bits, bit for bit, against both packages' popcount.
+    rng = np.random.default_rng(words)
+    pa = rng.integers(0, 2 ** 32, (2, 9, words), dtype=np.uint64).astype(np.uint32)
+    pb = rng.integers(0, 2 ** 32, (2, 11, words), dtype=np.uint64).astype(np.uint32)
+    pb[:, 3] = pa[:, 4]  # distance 0
+    pb[:, 5] = ~pa[:, 2]  # distance n_bits
+    neg2 = k1.binary_neg2_plain(*(torch.from_numpy(x.view(np.int32)) for x in (pa, pb)))
+    assert neg2.dtype == torch.int32
+    for p in range(2):
+        h = tham.hamming_distance_matrix(*(torch.from_numpy(x[p].view(np.int32))
+                                           for x in (pa, pb)))
+        jh = np.asarray(j_hamming_distance_matrix(jnp.asarray(pa[p]), jnp.asarray(pb[p])))
+        np.testing.assert_array_equal(h.numpy(), jh)
+        np.testing.assert_array_equal(neg2[p].numpy(), 4 * jh - 2 * 32 * words)
+    assert int(neg2[0, 4, 3]) == -64 * words and int(neg2[0, 2, 5]) == 64 * words

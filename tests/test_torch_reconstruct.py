@@ -93,7 +93,7 @@ def test_map_state_round_trip():
     jrec, scene = _map_state()
     state = interop.reconstruction_to_numpy(jrec)
     trec = interop.reconstruction_from_numpy(state, interop.config_from(jrec.cfg),
-                                             Pinhole.from_K(scene.K))
+                                             Pinhole.from_K(scene.K), device="cpu")
     back = interop.reconstruction_to_numpy(trec)
     for k, v in state.items():
         np.testing.assert_array_equal(back[k], v)

@@ -14,7 +14,10 @@ JSON line and writes the same to ``chiprun_out/profile_main_path.json``:
   memcpy intervals) and the idle share of the timed and the profiled wall;
 - device time, launch count and mean microseconds per launch of the top
   kernels by device time, of each of the port's own CUDA kernels (each
-  template instantiation apart), and summed per TPU kernel (K1-K5).
+  template instantiation apart), and summed per TPU kernel (K1-K5);
+- K2's launches and device time per (queries, bank rows) shape: the
+  profiled run records each ``match_pair_fused`` call's shape in order and
+  pairs the i-th with the i-th K2 tile kernel on the device's timeline.
 
     python tools/profile_main_path.py [--frames N] [--top K]
 """
@@ -33,8 +36,9 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, ROOT)
 
 # The port's kernels by their CUDA function names (csrc/).
-PORT_KERNELS = {"batch_match_tiles": "K1", "batch_match_finalize": "K1",
-                "topk_tiles": "K2", "topk_finalize": "K2", "gather_patches_kernel": "K3",
+# match_tiles is K1's and K2's shared engine; the main path runs only K2's.
+PORT_KERNELS = {"batch_match_finalize": "K1", "match_tiles": "K2",
+                "topk_finalize": "K2", "gather_patches_kernel": "K3",
                 "segsum_short": "K4", "segsum_long": "K4",
                 "gather_rows_narrow": "K5", "gather_rows_wide": "K5"}
 
@@ -54,7 +58,8 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import SMOKE_SCENE, kernel_short_name, nvidia_smi_line, render_smoke_scene
+    from chip_smoke import (SMOKE_SCENE, kernel_instance_name, kernel_short_name,
+                            nvidia_smi_line, render_smoke_scene)
     from fastmatch_tpu_torch.core.camera import Pinhole
     from fastmatch_tpu_torch.kernels import _build
     from fastmatch_tpu_torch.pipeline.config import PipelineConfig
@@ -79,18 +84,32 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rec = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
 
-    by_name, intervals = {}, []
+    k2_matcher, k2_shapes = k2.match_pair_fused, []
+
+    def record_k2(desc_a, desc_b, *args, **kw):
+        k2_shapes.append((desc_a.data.shape[0], desc_b.data.shape[0]))
+        return k2_matcher(desc_a, desc_b, *args, **kw)
+
+    k2.match_pair_fused = record_k2  # matching.match_pair imports it per call
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rec = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        k2.match_pair_fused = k2_matcher
+
+    by_name, intervals, k2_tiles = {}, [], []
     for ev in prof.events():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         s, e = ev.time_range.start, ev.time_range.end
         intervals.append((s, e))
+        if kernel_short_name(ev.name) == "match_tiles":
+            k2_tiles.append((s, e))
         d = by_name.setdefault(ev.name, [0.0, 0])
         d[0] += e - s
         d[1] += 1
@@ -104,7 +123,7 @@ def main(argv=None) -> int:
     for name, (us, count) in by_name.items():
         # One entry per instantiation: segsum_short<3> and segsum_short<9> apart.
         if kernel_short_name(name) in PORT_KERNELS:
-            short = name.split("(anonymous namespace)::")[-1].split("(")[0]
+            short = kernel_instance_name(name)
             port[short] = dict(row(name, us, count),
                                kernel=PORT_KERNELS[kernel_short_name(name)])
     per_kernel = {}
@@ -114,6 +133,14 @@ def main(argv=None) -> int:
         d["launches"] += v["launches"]
     for d in per_kernel.values():
         d["mean_us"] = d["device_ms"] * 1e3 / d["launches"]
+    k2_by_shape = {}
+    if len(k2_tiles) == len(k2_shapes):
+        for (n_q, n_b), (s, e) in zip(k2_shapes, sorted(k2_tiles)):
+            d = k2_by_shape.setdefault(f"{n_q}x{n_b}", dict(launches=0, device_ms=0.0))
+            d["launches"] += 1
+            d["device_ms"] += (e - s) * 1e-3
+        for d in k2_by_shape.values():
+            d["mean_us"] = d["device_ms"] * 1e3 / d["launches"]
     n = rec.n_frames
     gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
     out = dict(
@@ -126,7 +153,8 @@ def main(argv=None) -> int:
         kernel_launches=sum(v[1] for v in by_name.values()),
         ate=float(ate_rmse(rec.camera_centers(), gt)),
         top_kernels=[row(k, *v) for k, v in top], port_kernels=port,
-        port_kernels_total=per_kernel)
+        port_kernels_total=per_kernel, k2_tiles_by_shape=k2_by_shape,
+        k2_calls_seen=len(k2_shapes), k2_tile_launches_seen=len(k2_tiles))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "profile_main_path.json"), "w") as fh:
         json.dump(out, fh, indent=1)
