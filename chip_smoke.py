@@ -14,12 +14,15 @@ Phases, in order; any failure exits nonzero before the result line:
    size (64 pairs of 2048-capacity sets with 1500 live 128-d descriptors,
    exact, fast and packed binary, and fast at 256 pairs), K2 (fused
    distance/top-2/column argmin) at 2048x2048 and 2048x8192 in exact and
-   fast mode, K3 (patch gather) at the orientation and descriptor patch
-   shapes of a 640x480 frame, K4 (sorted segment sum, both variants) at
+   fast mode, K3 (patch gather over patch sets) at the orientation and
+   descriptor patch shapes of a 640x480 frame, on the real patch sets of a
+   rendered frame (SIFT's 8, ORB's 4, one launch each) and at its edge
+   cases, K4 (sorted segment sum, both variants) at
    each width the bundle adjustment sums and at its edge cases, and K5
    (sorted row gather) at the bundle adjustment's shapes; device time per
-   launch by ``torch.profiler`` (K1 and K2 per mode and shape, K4, K5),
-   K1's and K2's host time per call and the same-shape product alone
+   launch by ``torch.profiler`` (K1 and K2 per mode and shape, K3 per
+   shape and frame set, K4, K5), K1's, K2's and K3's host time per call,
+   K3's ``torch.take`` yardstick, and the same-shape product alone
    (``product_only_ms``), and the host time of each step of K4's and K5's
    wrappers; then the edges of K1's and K2's shared tile engine, bit for
    bit against the plain versions (``check_edges``);
@@ -28,10 +31,11 @@ Phases, in order; any failure exits nonzero before the result line:
 5. the config-2 path from images: SIFT and ORB on 33 rendered 640x480
    frames, matched as 32 consecutive pairs by ``match_batch`` (exact and
    fast) and ``match_batch_hamming``, with the launch counts of K1, K2 and
-   K3 set to 0 just before and read just after;
+   K3 set to 0 just before and read just after (K3: one launch a frame);
 6. the config-3 main path: ``reconstruct(images=...)`` on the 50 rendered
    frames with the default ``PipelineConfig``, with every kernel's launch
-   count set to 0 just before and read just after.
+   count set to 0 just before and read just after (K3: one launch a
+   frame).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -75,6 +79,7 @@ DEV = "cuda"        # the device of the config-2 checks and phase
 # tile engine (csrc/match_tile.cuh) and each one's finalize.
 K1_KERNELS = {"match_tiles", "batch_match_finalize"}
 K2_KERNELS = {"match_tiles", "topk_finalize"}
+K3_KERNELS = {"gather_patch_sets_kernel"}
 
 
 def render_smoke_scene(n_frames=None):
@@ -690,30 +695,125 @@ def sass_check():
     return counts
 
 
-def _window_union_bytes(stack, lyx, P):
-    """Bytes of the stack that the clamped windows of ``lyx`` cover: each
-    such element is read once and no other element need be."""
+def _k3_flat_index(seg):
+    """int64 flat indices into ``seg.stack`` of every element of the
+    segment's (K, P, P) windows, clamped as K3 clamps (the replicate pad
+    folded into the reads); written out here apart from the port's plain
+    version, for the bound and for ``torch.take``."""
     import torch
 
-    L, H, W = stack.shape
-    lv = lyx[:, 0].clamp(0, L - 1).long()
-    y = lyx[:, 1].clamp(0, H - P).long()
-    x = lyx[:, 2].clamp(0, W - P).long()
-    r = torch.arange(P, device=stack.device)
-    flat = ((lv[:, None, None] * H + y[:, None, None] + r[:, None]) * W
-            + x[:, None, None] + r)
-    touched = torch.zeros(L * H * W, dtype=torch.bool, device=stack.device)
-    touched[flat.reshape(-1)] = True
-    return 4 * int(touched.sum())
+    L, H, W = seg.stack.shape
+    P, pad = seg.patch, seg.pad
+    lyx = seg.lyx.long()
+    lv = lyx[:, 0].clamp(0, L - 1)
+    y0 = lyx[:, 1].clamp(0, H + 2 * pad - P) - pad
+    x0 = lyx[:, 2].clamp(0, W + 2 * pad - P) - pad
+    r = torch.arange(P, device=seg.stack.device)
+    rows = (y0[:, None] + r).clamp(0, H - 1)
+    cols = (x0[:, None] + r).clamp(0, W - 1)
+    return (lv[:, None, None] * H + rows[:, :, None]) * W + cols[:, None, :]
+
+
+def _k3_bytes(segments):
+    """Bytes a K3 call must move: every window element written once, each
+    start row read once, and each stack element that some window covers read
+    once (segments on one stack share their reads)."""
+    import torch
+
+    touched = {}
+    for seg in segments:
+        t = touched.setdefault(seg.stack.data_ptr(), torch.zeros(
+            seg.stack.numel(), dtype=torch.bool, device=seg.stack.device))
+        t[_k3_flat_index(seg).reshape(-1)] = True
+    written = sum(4 * seg.lyx.shape[0] * seg.patch ** 2 + 12 * seg.lyx.shape[0]
+                  for seg in segments)
+    return written + sum(4 * int(t.sum()) for t in touched.values())
+
+
+def _k3_same(got, ref):
+    """Two lists of tensors equal bit for bit, shapes included."""
+    import torch
+
+    return len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def _k3_frame_sets(dev):
+    """The K3 segments of one rendered 640x480 smoke frame, as the detection
+    stages of ``detect_and_describe`` (SIFT's 8) and
+    ``detect_and_describe_orb`` (ORB's 4) hand them to the kernel."""
+    import torch
+
+    from fastmatch_tpu_torch.features import orb, sift
+
+    _, views = render_smoke_scene(1)
+    img = torch.as_tensor(views[0], dtype=torch.float32).to(dev)
+    return {"sift_frame": sift._detect(img, sift.SIFTConfig())[1],
+            "orb_frame": orb._detect(img, orb.ORBConfig())[1]}
+
+
+def _k3_edge_sets(rng, dev):
+    """(name, segments, launches a call) of K3's edge cases, with starts
+    beyond both edges of each padded stack and levels out of range."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.kernels import patch_gather as k3
+
+    def seg(L, H, W, K, P, pad, far=False):
+        Hp, Wp = H + 2 * pad, W + 2 * pad
+        lyx = np.column_stack([rng.integers(-1, L + 1, K), rng.integers(-P - 4, Hp + 4, K),
+                               rng.integers(-P - 4, Wp + 4, K)])
+        if far:
+            lyx[:, 1:] = rng.choice([-10 ** 6, 10 ** 6], size=(K, 2))
+        stack = torch.from_numpy(rng.random((L, H, W), dtype=np.float32)).to(dev)
+        return k3.PatchSet(stack, torch.from_numpy(lyx.astype(np.int32)).to(dev), P, pad)
+
+    m = k3.MAX_SEGMENTS
+
+    def many(n):
+        out = []
+        for _ in range(n):
+            P = int(rng.choice([1, 5, 12, 19]))
+            pad = int(rng.integers(0, 3)) + max(0, (P - 11) // 2)
+            out.append(seg(int(rng.integers(1, 4)), 12, 14, int(rng.integers(0, 9)), P, pad))
+        return out
+
+    return [
+        ("K=0", [seg(2, 30, 40, 0, 19, 9)], 0),
+        ("K=0 beside work", [seg(2, 30, 40, 0, 19, 9), seg(2, 30, 40, 7, 19, 9),
+                             seg(2, 30, 40, 0, 88, 30)], 1),
+        ("K*P*P not a multiple of 4", [seg(2, 30, 40, 3, 19, 9), seg(1, 20, 30, 5, 13, 2),
+                                       seg(3, 33, 37, 1, 35, 1)], 1),
+        ("P=1", [seg(3, 10, 12, 37, 1, 0), seg(3, 10, 12, 9, 1, 4)], 1),
+        ("P=H+2pad", [seg(6, 30, 41, 50, 34, 2), seg(1, 20, 24, 21, 40, 10),
+                      seg(2, 60, 90, 11, 64, 2), seg(1, 84, 100, 9, 88, 2),
+                      seg(1, 1, 1, 4, 19, 9)], 1),
+        ("clamped starts, both sides", [seg(6, 60, 80, 300, 19, 9, far=True),
+                                        seg(6, 60, 80, 300, 88, 14, far=True),
+                                        seg(1, 50, 70, 200, 40, 20, far=True)], 1),
+        (f"{m} segments", many(m), 1),
+        (f"{m + 1} segments", many(m + 1), 2),
+    ]
 
 
 def check_k3(rng):
-    """K3 at SIFT's orientation and descriptor patch shapes on a 640x480
-    frame, at each of the 4 octaves (2048 >> o keypoints; the orientation
-    stack padded by R + 1 = 9 cut into 19x19 patches, the descriptor stack
-    padded by 2 cut into 88x88 patches, 64x64 at octave 3 where the stack
-    is smaller); outputs must be bit-equal. Wrapper and plain ms at octave
-    0, device us per launch (profiler) and bound at every octave."""
+    """K3 (``gather_patch_sets``, one launch a call over up to MAX_SEGMENTS
+    segments), every output bit-equal to its plain version:
+
+    - one-segment, unpadded launches (``gather_patches``) at SIFT's
+      orientation and descriptor shapes of a 640x480 frame at each of the 4
+      octaves (2048 >> o keypoints; stacks pre-padded by R + 1 = 9 and cut
+      into 19x19 patches, pre-padded by 2 and cut into 88x88, 64x64 at
+      octave 3): device us per launch and bound at every octave, wrapper
+      and plain ms at octave 0;
+    - the real segment sets of a rendered 640x480 frame, SIFT's 8 and ORB's
+      4 from the detection stage, also held against ``torch.take`` on the
+      clamped flat index: wrapper ms, device us per launch (one launch a
+      call), bound, plain ms, host us per call and ``library_ms`` (the sum
+      over segments of ``torch.take`` on a precomputed int64 flat index);
+    - edge cases (``_k3_edge_sets``), with the launches each call makes.
+
+    The kernels line's entry is the SIFT frame set's."""
     import torch
 
     from fastmatch_tpu_torch.kernels import patch_gather as k3
@@ -732,9 +832,8 @@ def check_k3(rng):
             got = k3.gather_patches(stack, lyx, P)
             ref = k3.gather_patches_plain(stack, lyx, P)
             equal = bool(torch.equal(got, ref))
-            us, seen = device_us(lambda: k3.gather_patches(stack, lyx, P),
-                                 {"gather_patches_kernel"}, n=50)
-            b_ms, b_by = bound(4 * K * P * P + _window_union_bytes(stack, lyx, P) + 12 * K)
+            us, seen = device_us(lambda: k3.gather_patches(stack, lyx, P), K3_KERNELS, n=50)
+            b_ms, b_by = bound(_k3_bytes([k3.PatchSet(stack, lyx, P, 0)]))
             d = dict(what=what, octave=o, stack=[L, H, W], K=K, P=P, bit_equal=equal,
                      device_us_per_launch=us, profiled_launches=seen, bound_ms=b_ms,
                      bound_by=b_by)
@@ -745,9 +844,47 @@ def check_k3(rng):
             log("K3", json.dumps(d))
             if not equal:
                 raise AssertionError(f"K3 {what} patches differ from the plain version")
-            if what == "descriptor" and o == 0:
-                entry = dict(max_abs_err=0.0, ms=d["ms"], plain_ms=d["plain_ms"],
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    for what, sets in _k3_frame_sets(dev).items():
+        got = k3.gather_patch_sets(sets)
+        ref = k3.gather_patch_sets_plain(sets)
+        idx = [_k3_flat_index(s) for s in sets]
+        take = [torch.take(s.stack, i) for s, i in zip(sets, idx)]
+        equal, equal_take = _k3_same(got, ref), _k3_same(got, take)
+        us, seen = device_us(lambda: k3.gather_patch_sets(sets), K3_KERNELS, n=50)
+        b_ms, b_by = bound(_k3_bytes(sets))
+        d = dict(what=what, segments=[dict(stack=list(s.stack.shape), K=s.lyx.shape[0],
+                                           P=s.patch, pad=s.pad) for s in sets],
+                 bit_equal=equal, equal_to_take=equal_take, device_us_per_launch=us,
+                 profiled_launches=seen, bound_ms=b_ms, bound_by=b_by,
+                 bytes_written=sum(4 * s.lyx.shape[0] * s.patch ** 2 for s in sets),
+                 ms=cuda_ms(lambda: k3.gather_patch_sets(sets)),
+                 plain_ms=cuda_ms(lambda: k3.gather_patch_sets_plain(sets), batches=3, reps=3),
+                 library_ms=cuda_ms(lambda: [torch.take(s.stack, i) for s, i in zip(sets, idx)]),
+                 host_us=host_us(lambda: k3.gather_patch_sets(sets), n=500))
+        d["share_of_bound"] = b_ms * 1e3 / us if us else None
+        details.append(d)
+        log("K3", json.dumps(d))
+        if not (equal and equal_take) or seen != 50:
+            raise AssertionError(f"K3 {what}: bit-equal to plain {equal}, to torch.take "
+                                 f"{equal_take}, {seen} launches in 50 calls")
+        if what == "sift_frame":
+            entry = dict(max_abs_err=0.0, ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms,
+                         bound_by=b_by, library_ms=d["library_ms"])
+
+    bad = []
+    for what, sets, want in _k3_edge_sets(rng, dev):
+        before = k3.gather_patch_sets.launches
+        got = k3.gather_patch_sets(sets)
+        made = k3.gather_patch_sets.launches - before
+        torch.cuda.synchronize()
+        ok = _k3_same(got, k3.gather_patch_sets_plain(sets)) and made == want
+        details.append(dict(what=f"edge: {what}", segments=len(sets), launches=made, ok=ok))
+        if not ok:
+            bad.append((what, made, want))
+    log("K3 edges", json.dumps([d for d in details if d["what"].startswith("edge")]))
+    if bad:
+        raise AssertionError(f"K3 edge cases (name, launches, expected) failed: {bad}")
     return entry, details
 
 
@@ -1002,7 +1139,7 @@ def config2_images(views):
 
     frames = views[:CONFIG2_PAIRS + 1]
     wrappers = {"batch_match": k1.match_batch_fused, "distance_topk": k2.distance_topk,
-                "gather_patches": k3.gather_patches}
+                "gather_patch_sets": k3.gather_patch_sets, "gather_patches": k3.gather_patches}
     secs = {}
 
     def stage(name, fn):
@@ -1068,6 +1205,10 @@ def config2_images(views):
     for k, counts in valid.items():
         if min(counts) <= 0:
             raise AssertionError(f"config-2 image phase: a pair without {k} matches: {counts}")
+    k3_want = 2 * len(frames)  # one K3 launch a frame, SIFT's and ORB's
+    if launches.pop("gather_patches") or launches["gather_patch_sets"] != k3_want:
+        raise AssertionError(f"config-2 path: K3 launches {launches}, want {k3_want} "
+                             "patch-set launches and no one-segment launch")
     for k, c in launches.items():
         if c <= 0:
             raise AssertionError(f"kernel {k} was not launched on the config-2 path")
@@ -1087,8 +1228,8 @@ def main_path(scene, views):
     from fastmatch_tpu_torch.pipeline.reconstruct import reconstruct
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
-    wrappers = {"distance_topk": k2.distance_topk, "gather_patches": k3.gather_patches,
-                "sorted_segment_sum": k4.sorted_segment_sum,
+    wrappers = {"distance_topk": k2.distance_topk, "gather_patch_sets": k3.gather_patch_sets,
+                "gather_patches": k3.gather_patches, "sorted_segment_sum": k4.sorted_segment_sum,
                 "sorted_gather_rows": k4.sorted_gather_rows}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1117,6 +1258,9 @@ def main_path(scene, views):
         raise AssertionError(f"main path: {n}/{len(views)} frames, or non-finite output")
     if not ate < ATE_GATE:
         raise AssertionError(f"main path ATE {ate} >= {ATE_GATE}")
+    if launches.pop("gather_patches") or launches["gather_patch_sets"] != len(views):
+        raise AssertionError(f"main path: K3 launches {launches}, want one patch-set "
+                             "launch a frame and no one-segment launch")
     for k, c in launches.items():
         if c <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -1158,7 +1302,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     entries = {}
     details = {"sass": phase("sass_check", sass_check)}
-    for name, fn in (("distance_topk", check_k2), ("gather_patches", check_k3),
+    for name, fn in (("distance_topk", check_k2), ("gather_patch_sets", check_k3),
                      ("sorted_segment_sum", check_k4), ("batch_match", check_k1),
                      ("sorted_gather_rows", check_k5)):
         entries[name], details[name] = phase(f"check_{name}", fn, rng)
@@ -1174,8 +1318,8 @@ def main() -> int:
     meta = {
         "distance_topk": ("src/fastmatch_tpu_torch/csrc/distance_topk.cu",
                           "src/fastmatch_tpu/kernels/distance_topk.py:164"),
-        "gather_patches": ("src/fastmatch_tpu_torch/csrc/patch_gather.cu",
-                           "src/fastmatch_tpu/kernels/patch_gather.py:117"),
+        "gather_patch_sets": ("src/fastmatch_tpu_torch/csrc/patch_gather.cu",
+                              "src/fastmatch_tpu/kernels/patch_gather.py:117"),
         "sorted_segment_sum": ("src/fastmatch_tpu_torch/csrc/segment_sum.cu",
                                "src/fastmatch_tpu/kernels/segment_ops.py:133"),
         "batch_match": ("src/fastmatch_tpu_torch/csrc/batch_match.cu",

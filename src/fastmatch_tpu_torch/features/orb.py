@@ -10,9 +10,11 @@ Port of ``fastmatch_tpu/features/orb.py``, function for function:
   corner where 9 contiguous circle pixels are all brighter or all darker,
   suppresses non-maxima with a 3x3 max pool and selects with a stable top-k
   (the lowest index wins among the many tied scores);
-- each keypoint's patch is fetched through the K3 kernel wrapper (via the
-  SIFT module's ``_extract_patches``), oriented by its intensity centroid,
-  and its 256 rotated BRIEF tests are bilinear samples taken as hat-function
+- every level is detected and blurred first; then one call of the K3 kernel
+  wrapper (``kernels/patch_gather.gather_patch_sets``) fetches every level's
+  keypoint patches, with the JAX package's replicate padding folded into
+  the gather; each patch is oriented by its intensity centroid, and its
+  256 rotated BRIEF tests are bilinear samples taken as hat-function
   weight products against the patch; the bits are packed into 8 words.
 
 The BRIEF pattern is the JAX package's: the same numpy generator and seed.
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 
 from fastmatch_tpu_torch.core.containers import BinaryDescriptors, Keypoints, pack_bits
 from fastmatch_tpu_torch.core.device import resolve_device
-from fastmatch_tpu_torch.features.sift import _blur, _extract_patches, _top_k
+from fastmatch_tpu_torch.features.sift import _blur, _lyx, _top_k
+from fastmatch_tpu_torch.kernels.patch_gather import PatchSet, gather_patch_sets
 
 
 class ORBConfig(NamedTuple):
@@ -132,15 +135,21 @@ def _detect_level(img: torch.Tensor, cfg: ORBConfig, k_level: int):
     return xy, vals, mask, yy, xx
 
 
-def _orient_and_describe(blurred: torch.Tensor, yy, xx, cfg: ORBConfig):
-    """Per-keypoint orientation (intensity centroid) and rotated BRIEF bits:
-    (angle (K,), bits (K, n_bits) bool)."""
+def _patch_set(blurred: torch.Tensor, yy, xx, cfg: ORBConfig) -> PatchSet:
+    """K3 segment of one level's keypoint patches: P x P windows of the
+    blurred level, replicate-padded by P // 2."""
+    half = cfg.patch // 2
+    # start + half (pad) - half (centre) == the keypoint pixel itself
+    return PatchSet(blurred[None], _lyx(torch.zeros_like(yy), yy, xx), cfg.patch, half)
+
+
+def _orient_and_describe(patches: torch.Tensor, cfg: ORBConfig):
+    """Per-keypoint orientation (intensity centroid) and rotated BRIEF bits
+    from each keypoint's patch (``_patch_set``): (angle (K,), bits
+    (K, n_bits) bool)."""
     P = cfg.patch
     half = P // 2
-    dev = blurred.device
-    padded = F.pad(blurred[None, None], (half, half, half, half), mode="replicate")[0]
-    # start + half (pad) - half (centre) == the keypoint pixel itself
-    patches = _extract_patches(padded, torch.zeros_like(yy), yy, xx, P)
+    dev = patches.device
 
     off = np.arange(P, dtype=np.float32) - half
     oy, ox = np.meshgrid(off, off, indexing="ij")
@@ -168,23 +177,36 @@ def _orient_and_describe(blurred: torch.Tensor, yy, xx, cfg: ORBConfig):
     return angle, bits
 
 
-def detect_and_describe_orb(img, cfg: ORBConfig = ORBConfig(), device=None):
-    """(H, W) [0,1] grayscale -> (Keypoints, BinaryDescriptors) at capacity,
-    on ``device`` (``cuda`` unless ``device="cpu"``). Keypoint xy are
-    level-0 pixel coordinates; ``scale`` is the level's scale factor."""
-    dev = resolve_device(device)
-    img = torch.as_tensor(img, dtype=torch.float32).to(dev)
+def _detect(img: torch.Tensor, cfg: ORBConfig):
+    """Detection of every pyramid level: (per level (xy, score, mask), K3
+    segments, one a level)."""
     levels = [img]
     for l in range(1, cfg.n_levels):
         sh = (int(round(img.shape[0] / cfg.scale_step ** l)),
               int(round(img.shape[1] / cfg.scale_step ** l)))
         levels.append(_resize_linear(img, sh))
 
-    outs = []
+    dets, sets = [], []
     for l, lv in enumerate(levels):
         k_level = max(cfg.capacity // (2 ** l), 128)
         xy, vals, mask, yy, xx = _detect_level(lv, cfg, k_level)
-        angle, bits = _orient_and_describe(_blur(lv, cfg.blur_sigma), yy, xx, cfg)
+        sets.append(_patch_set(_blur(lv, cfg.blur_sigma), yy, xx, cfg))
+        dets.append((xy, vals, mask))
+    return dets, sets
+
+
+def detect_and_describe_orb(img, cfg: ORBConfig = ORBConfig(), device=None):
+    """(H, W) [0,1] grayscale -> (Keypoints, BinaryDescriptors) at capacity,
+    on ``device`` (``cuda`` unless ``device="cpu"``). Keypoint xy are
+    level-0 pixel coordinates; ``scale`` is the level's scale factor. One K3
+    call a frame."""
+    dev = resolve_device(device)
+    img = torch.as_tensor(img, dtype=torch.float32).to(dev)
+    dets, sets = _detect(img, cfg)
+    patches = gather_patch_sets(sets)
+    outs = []
+    for l, (xy, vals, mask) in enumerate(dets):
+        angle, bits = _orient_and_describe(patches[l], cfg)
         mult = float(cfg.scale_step ** l)
         outs.append(dict(xy=xy * mult, scale=torch.full(xy.shape[:1], mult, device=dev),
                          angle=angle, score=torch.where(mask, vals, 0.0), mask=mask,

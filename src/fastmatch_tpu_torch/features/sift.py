@@ -6,8 +6,10 @@ DoG extrema use 3x3 max/min pooling with -inf borders, one Newton step
 refines each extremum, per-octave and global selection take the top scores
 with the lowest index winning ties, the orientation histogram is a one-hot
 contraction, and the descriptor samples one patch per keypoint through
-hat-function weight matrices. Both patch fetches go through the K3 kernel
-wrapper (``kernels/patch_gather.py``).
+hat-function weight matrices. All octaves are detected first; then one call
+of the K3 kernel wrapper (``kernels/patch_gather.gather_patch_sets``)
+fetches every octave's orientation and descriptor patches, with the JAX
+package's replicate padding folded into the gather.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 
 from fastmatch_tpu_torch.core.containers import Descriptors, Keypoints
 from fastmatch_tpu_torch.core.device import resolve_device
-from fastmatch_tpu_torch.kernels.patch_gather import gather_patches
+from fastmatch_tpu_torch.kernels.patch_gather import PatchSet, gather_patch_sets
 
 
 class SIFTConfig(NamedTuple):
@@ -178,24 +180,25 @@ def _detect_octave(dog: torch.Tensor, cfg: SIFTConfig, k_oct: int):
     return xy, (lvl + 1).to(torch.int32), off_sel, val_sel, mask, (yy, xx)
 
 
-def _extract_patches(stack, l, y, x, patch: int):
-    """(K,) level/row/col starts -> (K, patch, patch) patches through the K3
-    kernel wrapper (its plain version on the CPU); starts are clamped so
-    each patch lies inside the stack."""
-    lyx = torch.stack([l, y, x], dim=1).to(torch.int32).contiguous()
-    return gather_patches(stack.contiguous(), lyx, patch)
+def _lyx(l, y, x):
+    """(K,) level/row/col starts -> the (K, 3) int32 table K3 reads."""
+    return torch.stack([l, y, x], dim=1).to(torch.int32).contiguous()
 
 
-def _orientation(gauss: torch.Tensor, yx, lvl, sigma_rel, cfg: SIFTConfig):
-    """Dominant orientation per keypoint from a (2R+1)^2 patch of the
-    octave stack ``gauss`` around integer (y, x) at level ``lvl``."""
+def _orientation_set(gauss: torch.Tensor, yx, lvl, cfg: SIFTConfig) -> PatchSet:
+    """K3 segment of the orientation patches: (2R+3)^2 windows of the octave
+    stack ``gauss`` (replicate-padded by R+1) around integer (y, x) at level
+    ``lvl``, a one-pixel margin for the central differences."""
     R = cfg.ori_radius
-    P = 2 * R + 1
-    dev = gauss.device
-    padded = F.pad(gauss[None], (R + 1, R + 1, R + 1, R + 1), mode="replicate")[0]
-    d = torch.arange(-R, R + 1, device=dev, dtype=torch.float32)
+    return PatchSet(gauss, _lyx(lvl, yx[0] + 1, yx[1] + 1), 2 * R + 3, R + 1)
+
+
+def _orientation(img: torch.Tensor, sigma_rel, cfg: SIFTConfig):
+    """Dominant orientation per keypoint from its (2R+3)^2 orientation patch
+    ``img`` (``_orientation_set``)."""
+    R = cfg.ori_radius
+    d = torch.arange(-R, R + 1, device=img.device, dtype=torch.float32)
     oy, ox = torch.meshgrid(d, d, indexing="ij")
-    img = _extract_patches(padded, lvl, yx[0] + 1, yx[1] + 1, P + 2)
     gx = 0.5 * (img[:, 1:-1, 2:] - img[:, 1:-1, :-2])
     gy = 0.5 * (img[:, 2:, 1:-1] - img[:, :-2, 1:-1])
     mag = torch.sqrt(gx * gx + gy * gy)
@@ -234,16 +237,37 @@ def _descriptor_weights(cfg: SIFTConfig) -> np.ndarray:
     return w.astype(np.float32)
 
 
-def _descriptors(gauss, xy, lvl, angle, sigma_rel, cfg: SIFTConfig):
-    """128-d descriptors; xy in octave pixel coords (subpixel). One patch
-    per keypoint, sized to the worst-case support; bilinear samples as
-    hat-function weight matrices (see the JAX package for the derivation)."""
+_DESC_PAD = 2  # replicate padding of the descriptor patches' stack
+
+
+def _descriptor_set(gauss: torch.Tensor, xy, lvl, cfg: SIFTConfig):
+    """K3 segment of the descriptor patches (one a keypoint, sized to the
+    worst-case support, of the octave stack replicate-padded by 2) and the
+    padded (row, col) starts (oys, oxs) that the descriptor reads them by."""
     _, H, W = gauss.shape
-    dev = gauss.device
-    n = cfg.desc_samples
-    pad = 2
-    padded = F.pad(gauss[None], (pad, pad, pad, pad), mode="replicate")[0]
+    pad = _DESC_PAD
     Hp, Wp = H + 2 * pad, W + 2 * pad
+    smax = cfg.sigma0 * 2.0 ** ((cfg.scales_per_octave + 1.5) / cfg.scales_per_octave)
+    support = 3.0 * smax * (cfg.desc_width / 2.0) * math.sqrt(2.0) + 2.0
+    P = int(math.ceil(2.0 * support)) + 4
+    P = min(P + (-P) % 8, Hp, Wp)
+    oxs = (torch.round(xy[:, 0]).to(torch.int32) + pad - P // 2).clamp(0, Wp - P)
+    oys = (torch.round(xy[:, 1]).to(torch.int32) + pad - P // 2).clamp(0, Hp - P)
+    return PatchSet(gauss, _lyx(lvl, oys, oxs), P, pad), (oys, oxs)
+
+
+def _descriptors(patch, shape, xy, starts, angle, sigma_rel, cfg: SIFTConfig):
+    """128-d descriptors from each keypoint's descriptor patch ``patch``
+    (``_descriptor_set``, padded starts ``starts``) of an octave of
+    (H, W) ``shape``; xy in octave pixel coords (subpixel). Bilinear samples
+    as hat-function weight matrices (see the JAX package for the
+    derivation)."""
+    H, W = shape
+    dev = patch.device
+    n = cfg.desc_samples
+    pad = _DESC_PAD
+    P = patch.shape[-1]
+    oys, oxs = starts
 
     u = (np.arange(n) + 0.5) * cfg.desc_width / n - cfg.desc_width / 2
     uu_np, vv_np = np.meshgrid(u, u, indexing="ij")
@@ -252,15 +276,7 @@ def _descriptors(gauss, xy, lvl, angle, sigma_rel, cfg: SIFTConfig):
     wgauss = torch.exp(-(uu ** 2 + vv ** 2) / (2 * (0.5 * cfg.desc_width) ** 2))
     w_spatial = torch.as_tensor(_descriptor_weights(cfg), device=dev)
 
-    smax = cfg.sigma0 * 2.0 ** ((cfg.scales_per_octave + 1.5) / cfg.scales_per_octave)
-    support = 3.0 * smax * (cfg.desc_width / 2.0) * math.sqrt(2.0) + 2.0
-    P = int(math.ceil(2.0 * support)) + 4
-    P = min(P + (-P) % 8, Hp, Wp)
     pr = torch.arange(P, device=dev, dtype=torch.float32)
-
-    oxs = (torch.round(xy[:, 0]).to(torch.int32) + pad - P // 2).clamp(0, Wp - P)
-    oys = (torch.round(xy[:, 1]).to(torch.int32) + pad - P // 2).clamp(0, Hp - P)
-    patch = _extract_patches(padded, lvl, oys, oxs, P)
 
     K = xy.shape[0]
     hw = (3.0 * sigma_rel)[:, None, None]
@@ -301,25 +317,51 @@ def _descriptors(gauss, xy, lvl, angle, sigma_rel, cfg: SIFTConfig):
     return v
 
 
-def detect_and_describe(img, cfg: SIFTConfig = SIFTConfig(), device=None):
-    """(H, W) [0,1] grayscale -> (Keypoints, Descriptors) at cfg.capacity on
-    ``device`` (``cuda`` unless ``device="cpu"``)."""
-    dev = resolve_device(device)
-    img = torch.as_tensor(img, dtype=torch.float32).to(dev)
-    octaves, _ = _gaussian_pyramid(img, cfg)
+class _Octave(NamedTuple):
+    """One octave's detections, as the description stage reads them."""
+    shape: tuple
+    xy: torch.Tensor
+    val: torch.Tensor
+    mask: torch.Tensor
+    sigma_rel: torch.Tensor
+    desc_starts: tuple
+
+
+def _detect(img: torch.Tensor, cfg: SIFTConfig):
+    """Detection of every octave: (octaves, K3 segments). The segments are
+    every octave's orientation set, then every octave's descriptor set."""
+    pyramid, _ = _gaussian_pyramid(img, cfg)
     s = cfg.scales_per_octave
     k_per = [max(cfg.capacity // (2 ** o), 128) for o in range(cfg.n_octaves)]
-    outs = []
-    for o, gauss in enumerate(octaves):
+    octaves, ori_sets, desc_sets = [], [], []
+    for o, gauss in enumerate(pyramid):
         dog = gauss[1:] - gauss[:-1]
-        xy, lvl, off, val, mask, (yy, xx) = _detect_octave(dog, cfg, k_per[o])
+        xy, lvl, off, val, mask, yx = _detect_octave(dog, cfg, k_per[o])
         sigma_rel = cfg.sigma0 * torch.exp2((lvl.float() + off[:, 2]) / s)
-        angle = _orientation(gauss, (yy, xx), lvl, sigma_rel, cfg)
-        desc = _descriptors(gauss, xy, lvl, angle, sigma_rel, cfg)
+        desc_set, starts = _descriptor_set(gauss, xy, lvl, cfg)
+        ori_sets.append(_orientation_set(gauss, yx, lvl, cfg))
+        desc_sets.append(desc_set)
+        octaves.append(_Octave(tuple(gauss.shape[1:]), xy, val, mask, sigma_rel, starts))
+    return octaves, ori_sets + desc_sets
+
+
+def detect_and_describe(img, cfg: SIFTConfig = SIFTConfig(), device=None):
+    """(H, W) [0,1] grayscale -> (Keypoints, Descriptors) at cfg.capacity on
+    ``device`` (``cuda`` unless ``device="cpu"``). One K3 call a frame."""
+    dev = resolve_device(device)
+    img = torch.as_tensor(img, dtype=torch.float32).to(dev)
+    octaves, sets = _detect(img, cfg)
+    patches = gather_patch_sets(sets)
+    n = len(octaves)
+    outs = []
+    for o, oc in enumerate(octaves):
+        angle = _orientation(patches[o], oc.sigma_rel, cfg)
+        desc = _descriptors(patches[n + o], oc.shape, oc.xy, oc.desc_starts, angle,
+                            oc.sigma_rel, cfg)
         scale_mult = float(2 ** o)
-        outs.append(dict(xy=xy * scale_mult, scale=sigma_rel * scale_mult,
-                         angle=angle, score=torch.where(mask, val, 0.0),
-                         mask=mask, desc=desc))
+        outs.append(dict(xy=oc.xy * scale_mult, scale=oc.sigma_rel * scale_mult,
+                         angle=angle, score=torch.where(oc.mask, oc.val, 0.0),
+                         mask=oc.mask, desc=desc))
     cat = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
     sel_score = torch.where(cat["mask"], cat["score"].abs(), -1.0)
     _, pick = _top_k(sel_score, cfg.capacity)

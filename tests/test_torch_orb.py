@@ -134,6 +134,27 @@ def test_frame_pairs_batch_match_vs_jax():
         assert h[q, i1] == h[ma[p].numpy(), i1].min()
 
 
+def test_detect_and_describe_orb_one_k3_call(monkeypatch):
+    calls = []
+
+    def record(segments):
+        calls.append(list(segments))
+        return k3.gather_patch_sets(segments)
+
+    monkeypatch.setattr(torb, "gather_patch_sets", record)
+    img, kw = IMAGES["blob"]
+    cfg = torb.ORBConfig(**kw)
+    before = (k3.gather_patch_sets.launches, k3.gather_patches.launches)
+    torb.detect_and_describe_orb(img, cfg, device="cpu")
+    assert (k3.gather_patch_sets.launches, k3.gather_patches.launches) == before
+    assert len(calls) == 1 and len(calls[0]) == cfg.n_levels
+    for seg in calls[0]:  # each level's blurred image, padded by P // 2 in the reads
+        assert (seg.patch, seg.pad, seg.stack.shape[0]) == (cfg.patch, cfg.patch // 2, 1)
+        padded = torch.nn.functional.pad(seg.stack[None], (seg.pad,) * 4, mode="replicate")[0]
+        assert torch.equal(k3.gather_patch_sets([seg])[0],
+                           k3.gather_patches_plain(padded, seg.lyx, seg.patch))
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is usable")

@@ -35,10 +35,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, ROOT)
 
-# The port's kernels by their CUDA function names (csrc/).
+# The port's kernels by their CUDA function names (csrc/); K3's earlier
+# one-segment kernel (gather_patches_kernel) too, for older checkouts.
 # match_tiles is K1's and K2's shared engine; the main path runs only K2's.
 PORT_KERNELS = {"batch_match_finalize": "K1", "match_tiles": "K2",
-                "topk_finalize": "K2", "gather_patches_kernel": "K3",
+                "topk_finalize": "K2", "gather_patch_sets_kernel": "K3",
+                "gather_patches_kernel": "K3",
                 "segsum_short": "K4", "segsum_long": "K4",
                 "gather_rows_narrow": "K5", "gather_rows_wide": "K5"}
 
