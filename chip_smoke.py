@@ -25,7 +25,10 @@ Phases, in order; any failure exits nonzero before the result line:
    K3's ``torch.take`` yardstick, and the same-shape product alone
    (``product_only_ms``), and the host time of each step of K4's and K5's
    wrappers; then the edges of K1's and K2's shared tile engine, bit for
-   bit against the plain versions (``check_edges``);
+   bit against the plain versions (``check_edges``), and its depth loop
+   (rows deeper than 256 values or 64 packed words) at the matchers' sizes
+   (``check_depth``: K2 at D = 384 and 512, K1 at D = 384, K1 binary at 16
+   and 128 words, ``match_pair_hamming(backend="auto")`` at 512 bits);
 4. a small-input reference: ``reconstruct`` from synthetic features on the
    card and on the CPU, both held to the JAX package's ATE gate;
 5. the config-2 path from images: SIFT and ORB on 33 rendered 640x480
@@ -35,7 +38,15 @@ Phases, in order; any failure exits nonzero before the result line:
 6. the config-3 main path: ``reconstruct(images=...)`` on the 50 rendered
    frames with the default ``PipelineConfig``, with every kernel's launch
    count set to 0 just before and read just after (K3: one launch a
-   frame).
+   frame);
+7. BASELINE.json config 4: the 500-keyframe pose graph through
+   ``pgo_solve`` (dense and PCG) and ``pgo_solve_hierarchical``, held to the
+   JAX package's figures on a CPU (``config4_pgo``); then SLAM from 56
+   rendered 640x480 frames of an out-and-back orbit (``config4_slam``:
+   SIFT, ``slam`` with loop closure, PGO and global BA), with every
+   kernel's launch count set to 0 just before and read just after (K3: one
+   launch a frame; K1: none), and K2 at the loop retrieval's largest shape
+   against its plain version.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -96,6 +107,153 @@ def render_smoke_scene(n_frames=None):
     frames = list(range(p["n_frames"] if n_frames is None else n_frames))
     views = render_scene_views(scene, rng, image_size=p["image_size"], frames=frames)
     return scene, views
+
+
+# BASELINE.json config 4 ("Pose-graph SLAM: 500-keyframe sequence with loop
+# closure"), two ways. The pose graph at full size, not cut: the graph of
+# benchmarks/pgo_bench.py (500 keyframes on a circle of radius 10, odometry
+# drift 0.004, 5 loop closures, seed 0), rebuilt in numpy. And SLAM from
+# images: SMOKE_SCENE's landmarks seen from radius 6 on an out-and-back
+# orbit (a triangle wave over +-half_span at 2 half_span / sweep radians a
+# frame, ~1.4 degrees), whose way back revisits the way out's viewpoints
+# more than SlamConfig.loop_gap frames later (frames f and 2 sweep - f
+# coincide); cut from 500 keyframes to n_frames = 56. The way back loses
+# tracking a few frames after its first loop closures, in the JAX package
+# at frame 59 and in the port at frame 57 (tools/jax_config4_reference.py
+# --frames 120): SLAM tracks only the landmarks seen in its last 8 frames,
+# and its dedup gate keeps older ones from being triangulated again, so a
+# revisit sees ever fewer trackable landmarks. Hence the cut; a full orbit
+# instead needs more than 2 degrees a frame, where tracking is lost within
+# 12 frames.
+CONFIG4_PGO = dict(n=500, radius=10.0, drift=0.004, seed=0)
+CONFIG4_SCENE = dict(seed=0, n_points=400, n_frames=56, radius=6.0, half_span=0.6,
+                     sweep=49, image_size=(640, 480))
+
+
+def _so3_exp_np(w):
+    """Rodrigues in float64: (3,) axis-angle -> (3, 3) rotation."""
+    import numpy as np
+
+    th = float(np.linalg.norm(w))
+    W = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + W
+    return np.eye(3) + np.sin(th) / th * W + (1 - np.cos(th)) / th ** 2 * W @ W
+
+
+def _se3_exp_np(xi):
+    """(6,) twist [v, omega] -> (R, t) in float64 (the JAX package's SE3.exp)."""
+    import numpy as np
+
+    v, w = xi[:3], xi[3:]
+    th = float(np.linalg.norm(w))
+    W = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        V = np.eye(3) + 0.5 * W
+    else:
+        V = (np.eye(3) + (1 - np.cos(th)) / th ** 2 * W
+             + (th - np.sin(th)) / th ** 3 * W @ W)
+    return _so3_exp_np(w), V @ v
+
+
+def config4_pose_graph():
+    """The config-4 pose graph of benchmarks/pgo_bench.py:17-66 in numpy
+    (float64 algebra, the same draws in the same order), as float32 arrays:
+    dict(R, t (drifted start), edge_i, edge_j, ZR, Zt, edge_weight,
+    pose_mask, fixed, R_gt, t_gt)."""
+    import numpy as np
+
+    p = CONFIG4_PGO
+    n, rng = p["n"], np.random.default_rng(p["seed"])
+    ang = 2 * np.pi * np.arange(n) / n
+    Rg = np.zeros((n, 3, 3))
+    tg = np.zeros((n, 3))
+    for k in range(n):
+        c, s = np.cos(ang[k]), np.sin(ang[k])
+        Rw = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        Rg[k] = Rw.T
+        tg[k] = -Rw.T @ np.array([p["radius"] * c, p["radius"] * s, 0])
+
+    def rel(a, b):  # T_a T_b^-1
+        R = Rg[a] @ Rg[b].T
+        return R, tg[a] - R @ tg[b]
+
+    R0, t0 = [Rg[0]], [tg[0]]
+    ei, ej, ZR, Zt = [], [], [], []
+    for k in range(1, n):
+        Rz, tz = rel(k, k - 1)
+        nR, nt = _se3_exp_np(np.concatenate([p["drift"] * rng.standard_normal(3),
+                                             0.5 * p["drift"] * rng.standard_normal(3)]))
+        Rz, tz = nR @ Rz, nR @ tz + nt
+        R0.append(Rz @ R0[-1])
+        t0.append(Rz @ t0[-1] + tz)
+        ei.append(k), ej.append(k - 1), ZR.append(Rz), Zt.append(tz)
+    for a, b in ((n - 1, 0), (n // 2, 0), (n - 1, n // 2), (3 * n // 4, n // 4), (n // 4, 0)):
+        Rz, tz = rel(a, b)
+        ei.append(a), ej.append(b), ZR.append(Rz), Zt.append(tz)
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return dict(R=f32(R0), t=f32(t0), edge_i=np.asarray(ei, np.int32),
+                edge_j=np.asarray(ej, np.int32), ZR=f32(ZR), Zt=f32(Zt),
+                edge_weight=np.ones(len(ei), np.float32), pose_mask=np.ones(n, bool),
+                fixed=fixed, R_gt=f32(Rg), t_gt=f32(tg))
+
+
+class OrbitScene:
+    """Landmarks seen by cameras at ``angles`` on a circle of ``radius``
+    looking at the origin, with the attributes ``render_scene_views`` reads
+    (K, points, R, t, pixels, visible), as ``tests/synth.py``'s
+    SyntheticScene computes them."""
+
+    def __init__(self, points, angles, radius, image_size):
+        import numpy as np
+
+        from synth import look_at
+
+        w, h = image_size
+        self.K = np.array([[500.0, 0, w / 2], [0, 500.0, h / 2], [0, 0, 1.0]])
+        self.points = points
+        poses = [look_at(np.array([radius * np.sin(a), 0.5 * np.sin(2 * a),
+                                   -radius * np.cos(a)]), np.zeros(3)) for a in angles]
+        self.R = np.stack([R for R, _ in poses])
+        self.t = np.stack([t for _, t in poses])
+        cam = np.einsum("fij,pj->fpi", self.R, points) + self.t[:, None, :]
+        z = cam[..., 2]
+        self.pixels = (cam[..., :2] / np.clip(z[..., None], 1e-9, None)) @ np.diag(
+            [self.K[0, 0], self.K[1, 1]]) + self.K[:2, 2]
+        uv = self.pixels
+        self.visible = ((z > 0.1) & (uv[..., 0] >= 0) & (uv[..., 0] < w)
+                        & (uv[..., 1] >= 0) & (uv[..., 1] < h))
+
+
+def config4_angles(n_frames):
+    """The out-and-back orbit: a triangle wave from -half_span to
+    +half_span in ``sweep`` frames and back, so frames f and 2 sweep - f
+    share a viewpoint."""
+    import numpy as np
+
+    p = CONFIG4_SCENE
+    span, sweep = 2 * p["half_span"], p["sweep"]
+    phase = np.arange(n_frames) % (2 * sweep)
+    return -p["half_span"] + span / sweep * np.where(phase <= sweep, phase, 2 * sweep - phase)
+
+
+def render_config4_scene(n_frames=None):
+    """(scene, frames) of the config-4 SLAM sequence: SMOKE_SCENE's 400
+    landmarks (the same seed, the same draws) and their rendering, seen
+    from ``config4_angles``; frames are (480, 640) f32."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth import render_scene_views
+
+    p = CONFIG4_SCENE
+    n = p["n_frames"] if n_frames is None else n_frames
+    rng = np.random.default_rng(p["seed"])
+    points = rng.uniform(-2.0, 2.0, size=(p["n_points"], 3))  # SyntheticScene's first draw
+    scene = OrbitScene(points, config4_angles(n), p["radius"], p["image_size"])
+    return scene, render_scene_views(scene, rng, image_size=p["image_size"])
 
 
 def log(*args):
@@ -168,22 +326,25 @@ def torch_all(t):
     return bool(t.all().item())
 
 
-def _config2_sets(rng, batch, matched=False):
-    """bench.py's make_pairs in numpy: (a, b) lists of (live, 128) unit
+def _config2_sets(rng, batch, matched=False, dim=128):
+    """bench.py's make_pairs in numpy: (a, b) lists of (live, dim) unit
     |N(0, 1)| sets, unrelated to each other. With ``matched``, each bank is
     instead a permuted copy of its queries with N(0, 0.08) noise (unit
     |.|), so about a fifth of the queries pass at ratio 0.8, many of them
-    near the threshold."""
+    near the threshold (the noise scales as sqrt(128 / dim), so that the
+    same share passes at any width)."""
     import numpy as np
 
     def unit(d):
         return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
 
+    noise = 0.08 * np.sqrt(128 / dim)
+
     def pair():
-        a = unit(np.abs(rng.standard_normal((CONFIG2["live"], 128))))
+        a = unit(np.abs(rng.standard_normal((CONFIG2["live"], dim))))
         if not matched:
-            return a, unit(np.abs(rng.standard_normal((CONFIG2["live"], 128))))
-        b = unit(np.abs(a + 0.08 * rng.standard_normal(a.shape)))
+            return a, unit(np.abs(rng.standard_normal((CONFIG2["live"], dim))))
+        b = unit(np.abs(a + noise * rng.standard_normal(a.shape)))
         return a, b[rng.permutation(CONFIG2["live"])]
 
     raw = [pair() for _ in range(batch)]
@@ -564,12 +725,15 @@ def _quarter_sets(rng, n, m, d=128, dead_every=5):
 def check_edges(rng):
     """The tile engine's edges, each held to the plain version bit for bit
     on exact-arithmetic inputs (``_quarter_sets``): K2 at n = 1, at m = 1,
-    127, 129 and 8193 and at D = 256, exact and fast; K1 at capacity 2047
-    with one all-masked bank pair, and at 2 pairs of 256 queries (a split
-    bank, with a run of dead tiles inside it), exact and fast; K1 binary at
-    4, 8 and 64 words (the last 112 rows of each set dead), identical to
-    its plain version (idx at live queries) and to the popcount matcher
-    but for column ties (``_column_ties_only``)."""
+    127, 129 and 8193, at D = 256, and in the depth loop at D = 288 (a
+    half last bf16 chunk) and 512 with m = 129, exact and fast; K1 at
+    capacity 2047 with one all-masked bank pair, at 2 pairs of 256 queries
+    (a split bank, with a run of dead tiles inside it), and in the depth
+    loop at D = 384, exact and fast; K1 binary at 4, 8 and 64 words and in
+    the depth loop at 68 (a half last chunk) and 128 words (the last 112
+    rows of each set dead), identical to its plain version (idx at live
+    queries) and to the popcount matcher but for column ties
+    (``_column_ties_only``)."""
     import numpy as np
     import torch
 
@@ -587,7 +751,7 @@ def check_edges(rng):
         return bool(torch.equal(x, y))
 
     for n, m, d in ((1, 300, 128), (300, 1, 128), (2048, 127, 128), (2048, 129, 128),
-                    (300, 8193, 128), (500, 1000, 256)):
+                    (300, 8193, 128), (500, 1000, 256), (2048, 129, 288), (2048, 129, 512)):
         a, b, mb = _quarter_sets(rng, n, m, d)
         a, b, mb = (torch.from_numpy(x).to(dev) for x in (a, b, mb))
         a2m = (a * a).sum(-1).contiguous()
@@ -600,10 +764,10 @@ def check_edges(rng):
             if not ok:
                 bad.append(out[-1])
 
-    def k1_case(what, B, n, m, dead_rows=None, masked_pair=None):
+    def k1_case(what, B, n, m, dead_rows=None, masked_pair=None, d=128):
         qs, bs, ma, mbs = [], [], [], []
         for _ in range(B):
-            a, b, mb = _quarter_sets(rng, n, m)
+            a, b, mb = _quarter_sets(rng, n, m, d)
             if dead_rows is not None:
                 mb[dead_rows] = False
             qs.append(a), bs.append(b), ma.append(np.ones(n, bool)), mbs.append(mb)
@@ -622,8 +786,10 @@ def check_edges(rng):
 
     k1_case("capacity 2047, pair 1 all masked", 4, 2047, 2047, masked_pair=1)
     k1_case("split bank, bank rows 512-767 dead", 2, 256, 2048, dead_rows=slice(512, 768))
+    k1_case("depth loop, D = 384, bank rows 128-191 dead", 2, 300, 700,
+            dead_rows=slice(128, 192), d=384)
 
-    for W in (4, 8, 64):
+    for W in (4, 8, 64, 68, 128):
         B, cap = 2, 512
         words = rng.integers(0, 2 ** 32, size=(B, cap, W), dtype=np.uint64).astype(np.uint32)
         other = words[:, rng.permutation(cap)].copy()
@@ -654,6 +820,162 @@ def check_edges(rng):
     if bad:
         raise AssertionError(f"tile engine edge cases differ from the plain versions: {bad}")
     return out
+
+
+def check_depth(rng):
+    """The tile engine's depth loop (rows deeper than 256 values or 64
+    packed words) at the matchers' sizes, against the plain versions:
+
+    - K2 at 2048 x 8192 with D = 384 and 512 on noisy-copy banks
+      (``_descriptor_sets``), exact (decisions identical to
+      ``match_pair_plain``) and fast (agreement >= 0.99);
+    - K1 at 64 x 2048 x 2048 with D = 384 (1500 live, noisy-copy banks),
+      exact (decisions identical) and fast (agreement >= 0.99 with the
+      exact plain version);
+    - K1 binary at 16 and at 128 words (8 pairs of 2048, half the rows
+      re-drawn): identical to its plain version, the JAX package's "mxu"
+      semantics (value-based mutual test), and to the popcount matcher but
+      for column ties;
+    - ``match_pair_hamming(backend="auto")`` at 512 bits (K2 fast at D =
+      512 on +-1 vectors): identical to the popcount matcher.
+
+    Each with its wrapper ms, device us per call (profiler), plain ms and
+    bound. Returns the details."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import BinaryDescriptors, Descriptors
+    from fastmatch_tpu_torch.interop import (batched_descriptors_from_numpy,
+                                             binary_descriptors_from_arrays)
+    from fastmatch_tpu_torch.kernels import batch_match as k1
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.matching import hamming
+    from fastmatch_tpu_torch.matching.matcher import BIG, match_pair_plain, stack_matches
+
+    dev = torch.device(DEV)
+    details, bad = [], []
+
+    def record(rec, ok):
+        details.append(rec)
+        log("depth", json.dumps(rec))
+        if not ok:
+            bad.append(rec)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+    n, m, m_live = 2048, 8192, 5000
+    for D in (384, 512):
+        q = unit(np.abs(rng.standard_normal((n, D))))
+        bank = np.zeros((m, D), np.float32)
+        bank[:m_live] = unit(np.abs(rng.standard_normal((m_live, D))))
+        rows = rng.choice(m_live, 1500, replace=False)
+        bank[rows] = unit(np.abs(q[:1500] + 0.08 * np.sqrt(128 / D)
+                                 * rng.standard_normal((1500, D))))
+        mb = np.zeros(m, bool)
+        mb[:m_live] = True
+        da = Descriptors(torch.from_numpy(q).to(dev), torch.ones(n, dtype=torch.bool, device=dev))
+        db = Descriptors(torch.from_numpy(bank).to(dev), torch.from_numpy(mb).to(dev))
+        a, b = da.data, db.data
+        a2m = (a * a).sum(-1).contiguous()
+        b2m = torch.where(db.mask, (b * b).sum(-1), BIG).contiguous()
+        ref = match_pair_plain(da, db)
+        for mode in ("exact", "fast"):
+            fast = mode == "fast"
+            got = k2.match_pair_fused(da, db, precision=mode)
+            agree = _agreement(got, ref, da.mask)
+            call = lambda: k2.distance_topk(a, b, b2m, a2m, fast=fast)  # noqa: E731
+            us, seen = device_us(call, K2_KERNELS, n=20)
+            b_ms, b_by = bound(4 * (n * D + m * D + n + m) + 4 * (3 * n + m), 2.0 * n * m * D,
+                               PEAK_BF16_FLOPS if fast else PEAK_FP32_FLOPS)
+            record(dict(kernel="K2", shape=[n, m, D], mode=mode, decision_agreement=agree,
+                        n_valid=int(ref.valid.sum()), ms=cuda_ms(call),
+                        plain_ms=cuda_ms(lambda: k2.distance_topk_plain(a, b, b2m, a2m,
+                                                                         fast=fast),
+                                         batches=3, reps=3),
+                        device_us_per_call=us * seen / 20 if seen else None,
+                        profiled_launches=seen, bound_ms=b_ms, bound_by=b_by),
+                   (agree == 1.0 if mode == "exact" else agree >= 0.99)
+                   and int(ref.valid.sum()) >= K1_MIN_VALID // 2)
+
+    B, cap, D = CONFIG2["batch"], CONFIG2["capacity"], 384
+    a_sets, b_sets = _config2_sets(rng, B, matched=True, dim=D)
+    da = batched_descriptors_from_numpy(a_sets, cap, dev)
+    db = batched_descriptors_from_numpy(b_sets, cap, dev)
+    ref = k1.match_batch_fused_plain(da, db)
+    for mode in ("exact", "fast"):
+        fast = mode == "fast"
+        got = k1.match_batch_fused(da, db, fast=fast)
+        agree = _agreement(got, ref, da.mask)
+        call = lambda: k1.match_batch_fused(da, db, fast=fast)  # noqa: E731
+        us, seen = device_us(call, K1_KERNELS, n=5)
+        b_ms, b_by = k1_bound(da.mask, db.mask, 2 * D, (2 if fast else 4) * D,
+                              PEAK_BF16_FLOPS if fast else PEAK_FP32_FLOPS)
+        record(dict(kernel="K1", batch=B, shape=[cap, cap, D], mode=mode,
+                    decisions_identical=_decisions_equal(got, ref) if not fast else None,
+                    decision_agreement=agree, n_valid=int(ref.valid.sum()),
+                    ms=cuda_ms(call, reps=3),
+                    plain_ms=cuda_ms(lambda: k1.match_batch_fused_plain(da, db, fast=fast),
+                                     batches=3, reps=1),
+                    device_us_per_call=us * seen / 5 if seen else None,
+                    profiled_launches=seen, bound_ms=b_ms, bound_by=b_by),
+               (agree == 1.0 and _decisions_equal(got, ref)) if not fast
+               else (agree >= 0.99 and int(got.valid.sum()) >= K1_MIN_VALID))
+    del da, db, ref
+
+    Bb = 8
+    for W in (16, 128):
+        words = rng.integers(0, 2 ** 32, size=(Bb, cap, W), dtype=np.uint64).astype(np.uint32)
+        other = words.copy()
+        other[:, :cap // 2] = rng.integers(0, 2 ** 32, size=(Bb, cap // 2, W),
+                                           dtype=np.uint64).astype(np.uint32)
+        other = other[:, rng.permutation(cap)]
+        ones = np.ones((Bb, cap), bool)
+        A = binary_descriptors_from_arrays(words, ones, dev)
+        Bk = binary_descriptors_from_arrays(other, ones, dev)
+        call = lambda: hamming.match_batch_hamming(A, Bk, backend="mxu", device=DEV)  # noqa
+        got = call()
+        plain = hamming._quarter(k1.match_batch_fused_plain(
+            Descriptors(A.packed, A.mask), Descriptors(Bk.packed, Bk.mask),
+            ratio=hamming._ratio_sqrt(0.8), fast=True, const_sq_norm=32.0 * W, binary=True))
+        anchor = stack_matches(hamming.match_pair_hamming_plain(
+            BinaryDescriptors(pa, ma), BinaryDescriptors(pb, mb))
+            for pa, ma, pb, mb in zip(A.packed, A.mask, Bk.packed, Bk.mask))
+        identical = all(bool(torch.equal(x, y)) for x, y in zip(got, plain))
+        ties, ties_only = _column_ties_only(got, anchor, A, Bk)
+        us, seen = device_us(call, K1_KERNELS, n=10)
+        b_ms, b_by = k1_bound(A.mask, Bk.mask, 2 * 32 * W, 32, PEAK_INT_OPS)
+        n_valid = int(anchor.valid.sum())
+        record(dict(kernel="K1 binary", batch=Bb, shape=[cap, cap], words=W,
+                    identical_to_plain=identical, column_ties=ties,
+                    popcount_ties_only=ties_only, n_valid=n_valid, ms=cuda_ms(call),
+                    plain_ms=cuda_ms(lambda: k1.match_batch_fused_plain(
+                        Descriptors(A.packed, A.mask), Descriptors(Bk.packed, Bk.mask),
+                        ratio=hamming._ratio_sqrt(0.8), fast=True, const_sq_norm=32.0 * W,
+                        binary=True), batches=3, reps=1),
+                    device_us_per_call=us * seen / 10 if seen else None,
+                    profiled_launches=seen, bound_ms=b_ms, bound_by=b_by),
+               identical and ties_only and n_valid >= K1_MIN_VALID)
+
+    words = rng.integers(0, 2 ** 32, size=(cap, 16), dtype=np.uint64).astype(np.uint32)
+    other = words[rng.permutation(cap)].copy()
+    other[::2] = rng.integers(0, 2 ** 32, size=other[::2].shape,
+                              dtype=np.uint64).astype(np.uint32)
+    ones = np.ones(cap, bool)
+    A = binary_descriptors_from_arrays(words, ones, dev)
+    Bk = binary_descriptors_from_arrays(other, ones, dev)
+    before = k2.distance_topk.launches
+    got = hamming.match_pair_hamming(A, Bk, backend="auto", device=DEV)
+    launched = k2.distance_topk.launches - before
+    anchor = hamming.match_pair_hamming_plain(A, Bk)
+    identical = all(bool(torch.equal(x, y)) for x, y in zip(got, anchor))
+    record(dict(kernel="K2 via match_pair_hamming(auto)", shape=[cap, cap], bits=512,
+                k2_launches=launched, identical_to_popcount=identical,
+                n_valid=int(anchor.valid.sum())),
+           identical and launched == 1 and int(anchor.valid.sum()) > 0)
+    if bad:
+        raise AssertionError(f"depth loop checks failed: {bad}")
+    return details
 
 
 def sass_check():
@@ -805,7 +1127,8 @@ def check_k3(rng):
       octaves (2048 >> o keypoints; stacks pre-padded by R + 1 = 9 and cut
       into 19x19 patches, pre-padded by 2 and cut into 88x88, 64x64 at
       octave 3): device us per launch and bound at every octave, wrapper
-      and plain ms at octave 0;
+      and plain ms and ``library_ms`` (``torch.take``, also bit-equal) at
+      octave 0;
     - the real segment sets of a rendered 640x480 frame, SIFT's 8 and ORB's
       4 from the detection stage, also held against ``torch.take`` on the
       clamped flat index: wrapper ms, device us per launch (one launch a
@@ -840,6 +1163,12 @@ def check_k3(rng):
             if o == 0:
                 d["ms"] = cuda_ms(lambda: k3.gather_patches(stack, lyx, P))
                 d["plain_ms"] = cuda_ms(lambda: k3.gather_patches_plain(stack, lyx, P))
+                # torch.take on a precomputed int64 flat index: the one call
+                # that computes the same gather (a yardstick).
+                idx = _k3_flat_index(k3.PatchSet(stack, lyx, P, 0))
+                d["library_ms"] = cuda_ms(lambda: torch.take(stack, idx))
+                d["equal_to_take"] = bool(torch.equal(got, torch.take(stack, idx)))
+                equal = equal and d["equal_to_take"]
             details.append(d)
             log("K3", json.dumps(d))
             if not equal:
@@ -1267,6 +1596,195 @@ def main_path(scene, views):
     return launches
 
 
+# The JAX package's figures on the same inputs, on a CPU
+# (tools/jax_config4_reference.py): the config-4 pose graph solved dense,
+# by PCG and hierarchically, and SLAM on the config-4 scene.
+JAX_CONFIG4_PGO = dict(
+    cost0=0.41399016976356506, ate_start=0.4149347245693207,
+    dense=dict(cost=0.00010385062341811135, iters=30, ate=0.03560258075594902),
+    pcg=dict(cost=0.0001988184085348621, iters=30, ate=0.03497856482863426),
+    hierarchical=dict(cost=0.0001204079162562266, iters=50, ate=0.03375827521085739))
+JAX_CONFIG4_SLAM = dict(frames_tracked=56, ate=0.007685244083404541,
+                        loop_edges=[[54, 41], [55, 42]], pgo_runs=2, n_points=5433,
+                        n_obs=16656)
+
+
+def _centers(R, t):
+    import torch
+
+    return -torch.einsum("fji,fj->fi", R, t)
+
+
+def config4_pgo():
+    """The config-4 pose graph at full size (``config4_pose_graph``: 500
+    keyframes, 504 edges) through ``pgo_solve`` (dense, twice, and PCG;
+    ``max_iters=30, kernel="geman", huber_delta_static=0.5``) and
+    ``pgo_solve_hierarchical`` on the card. Gates: cost0 within rtol 1e-4
+    of the JAX package's on the CPU (the same function of the same
+    inputs); the dense final cost within rtol 1e-3 of the JAX package's;
+    the dense ATE within 10% of the JAX package's and below the drifted
+    start's; every solver lowers the cost. Prints ms per solve and LM
+    iterations/s (wall clock, after a warm-up solve), and whether the two
+    dense solves are bit-identical (``index_add_`` sums by float atomics;
+    not gated)."""
+    import torch
+
+    from fastmatch_tpu_torch.interop import pose_graph_from_numpy
+    from fastmatch_tpu_torch.posegraph import pgo_solve, pgo_solve_hierarchical
+    from fastmatch_tpu_torch.utils.evaluation import ate_rmse
+
+    a = config4_pose_graph()
+    g = pose_graph_from_numpy(dict(poses=(a["R"], a["t"]), edge_i=a["edge_i"],
+                                   edge_j=a["edge_j"], Z=(a["ZR"], a["Zt"]),
+                                   edge_weight=a["edge_weight"], pose_mask=a["pose_mask"],
+                                   fixed=a["fixed"]), device=DEV)
+    gt = _centers(torch.from_numpy(a["R_gt"]), torch.from_numpy(a["t_gt"]))
+
+    def ate(T):
+        return float(ate_rmse(_centers(T.R.cpu(), T.t.cpu()), gt))
+
+    kw = dict(kernel="geman", huber_delta_static=0.5, device=DEV)
+    solves = {"dense": lambda: pgo_solve(g, max_iters=30, **kw),
+              "pcg": lambda: pgo_solve(g, max_iters=30, solver="pcg", **kw),
+              "hierarchical": lambda: pgo_solve_hierarchical(g, **kw)}
+    out = dict(graph=CONFIG4_PGO, edges=int(a["edge_i"].shape[0]), ate_start=ate(g.poses),
+               jax_cpu=JAX_CONFIG4_PGO)
+    first = solves["dense"]()  # warm-up (cuSOLVER's first call), kept for the rerun check
+    torch.cuda.synchronize()
+    for name, fn in solves.items():
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = dict(cost0=float(res.cost0), cost=float(res.cost), iters=res.iters,
+                         ate=ate(res.poses), ms_per_solve=secs * 1e3,
+                         lm_iters_per_s=res.iters / secs)
+        if name == "dense":
+            out[name]["bit_identical_rerun"] = bool(
+                torch.equal(res.poses.R, first.poses.R) and torch.equal(res.poses.t, first.poses.t)
+                and torch.equal(res.cost, first.cost))
+    log("config4_pgo", json.dumps(out))
+    J, d = JAX_CONFIG4_PGO, out["dense"]
+    fails = []
+    if abs(d["cost0"] - J["cost0"]) > 1e-4 * J["cost0"]:
+        fails.append("cost0 differs from the JAX package's beyond rtol 1e-4")
+    if abs(d["cost"] - J["dense"]["cost"]) > 1e-3 * J["dense"]["cost"]:
+        fails.append("dense cost differs from the JAX package's beyond rtol 1e-3")
+    if not (abs(d["ate"] - J["dense"]["ate"]) <= 0.1 * J["dense"]["ate"]
+            and d["ate"] < out["ate_start"]):
+        fails.append("dense ATE not within 10% of the JAX package's, or not below the start's")
+    for name in solves:
+        if not out[name]["cost"] < out[name]["cost0"]:
+            fails.append(f"{name} did not lower the cost")
+    if fails:
+        raise AssertionError(f"config-4 PGO: {fails}: {out}")
+    return out
+
+
+def config4_slam():
+    """BASELINE.json config 4 from images: SIFT (``detect_features``, the
+    default ``SIFTConfig``, capacity 2048) on the config-4 scene's rendered
+    640x480 frames, then ``slam`` with the default ``SlamConfig`` and
+    ``MapConfig.max_frames`` >= the frame count, with every kernel's launch
+    count set to 0 just before and read just after. Gates: every frame
+    tracked, a loop edge at least ``loop_gap`` frames long, a PGO run, ATE
+    < ATE_GATE; K3 one launch a frame, K2, K4 and K5 launched, K1 not. Then
+    K2 at the loop retrieval's largest shape (the last frame against the
+    bank of every frame ``loop_gap`` older) held against the plain version
+    with exact decisions, with its wrapper ms, device us and bound."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.core.containers import Descriptors
+    from fastmatch_tpu_torch.kernels import batch_match as k1
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.kernels import patch_gather as k3
+    from fastmatch_tpu_torch.kernels import segment_ops as k4
+    from fastmatch_tpu_torch.matching.matcher import BIG, match_pair_plain
+    from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
+    from fastmatch_tpu_torch.pipeline.reconstruct import detect_features
+    from fastmatch_tpu_torch.pipeline.slam import SlamConfig, slam
+    from fastmatch_tpu_torch.utils.evaluation import ate_rmse
+
+    t0 = time.perf_counter()
+    scene, views = render_config4_scene()
+    render_s = time.perf_counter() - t0
+    N = len(views)
+    cfg = PipelineConfig(map=MapConfig(max_frames=max(64, N)))
+    scfg = SlamConfig()
+    wrappers = {"batch_match": k1.match_batch_fused, "distance_topk": k2.distance_topk,
+                "gather_patch_sets": k3.gather_patch_sets, "gather_patches": k3.gather_patches,
+                "sorted_segment_sum": k4.sorted_segment_sum,
+                "sorted_gather_rows": k4.sorted_gather_rows}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    secs = {"sift": 0.0}
+    feats = detect_features(views, cfg, DEV, secs)
+    out = slam(feats, Pinhole.from_K(scene.K), cfg, scfg, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rec = out.rec
+    rec.stage_seconds["sift"] = secs["sift"]
+    n = rec.n_frames
+    gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
+    ate = float(ate_rmse(rec.camera_centers(), gt))
+    loops = [[int(e[0]), int(e[1])] for e in out.loop_edges]
+    stats = dict(scene=CONFIG4_SCENE, frames=N, frames_tracked=n, seconds=wall,
+                 frames_per_s=n / wall, render_seconds=render_s,
+                 stage_seconds=rec.stage_seconds, ate=ate, loop_edges=loops,
+                 pgo_runs=out.pgo_runs, odo_edges=len(out.odo_edges),
+                 n_points=int(rec.pt_mask.sum()), n_obs=rec.n_obs, launches=dict(launches),
+                 peak_mem_bytes=torch.cuda.max_memory_allocated(), jax_cpu=JAX_CONFIG4_SLAM)
+
+    # K2 at the retrieval's largest shape, against the plain version.
+    n_old = N - 1 - scfg.loop_gap
+    dev = torch.device(DEV)
+    da = Descriptors(torch.from_numpy(feats[-1][1]).to(dev), torch.from_numpy(feats[-1][2]).to(dev))
+    db = Descriptors(torch.from_numpy(np.concatenate([f[1] for f in feats[:n_old]])).to(dev),
+                     torch.from_numpy(np.concatenate([f[2] for f in feats[:n_old]])).to(dev))
+    got = k2.match_pair_fused(da, db)
+    ref = match_pair_plain(da, db)
+    a, b = da.data, db.data
+    a2m = torch.where(da.mask, (a * a).sum(-1), BIG).contiguous()
+    b2m = torch.where(db.mask, (b * b).sum(-1), BIG).contiguous()
+    call = lambda: k2.distance_topk(a, b, b2m, a2m)  # noqa: E731
+    us, seen = device_us(call, K2_KERNELS, n=10)
+    nq, m, D = a.shape[0], b.shape[0], a.shape[1]
+    b_ms, b_by = bound(4 * (nq * D + m * D + nq + m) + 4 * (3 * nq + m), 2.0 * nq * m * D)
+    retrieval = dict(shape=[nq, m, D], n_old=n_old, decisions_identical=_decisions_equal(got, ref),
+                     n_valid=int(ref.valid.sum()), ms=cuda_ms(call, batches=5, reps=5),
+                     plain_ms=cuda_ms(lambda: k2.distance_topk_plain(a, b, b2m, a2m),
+                                      batches=3, reps=1),
+                     device_us_per_call=us * seen / 10 if seen else None,
+                     profiled_launches=seen, bound_ms=b_ms, bound_by=b_by)
+    stats["retrieval_k2"] = retrieval
+    log("config4_slam", json.dumps(stats))
+    fails = []
+    if n != N or not np.isfinite(rec.camera_centers()).all():
+        fails.append(f"{n}/{N} frames tracked, or non-finite poses")
+    if not any(f - c >= scfg.loop_gap for f, c in loops):
+        fails.append(f"no loop edge of at least {scfg.loop_gap} frames")
+    if out.pgo_runs < 1:
+        fails.append("no PGO run")
+    if not ate < ATE_GATE:
+        fails.append(f"ATE {ate} >= {ATE_GATE}")
+    if launches.pop("gather_patches") or launches["gather_patch_sets"] != N:
+        fails.append(f"K3 launches {launches}, want one patch-set launch a frame")
+    if launches.pop("batch_match"):
+        fails.append("K1 launched on the config-4 path")
+    fails += [f"kernel {k} not launched" for k, c in launches.items() if c <= 0]
+    if not retrieval["decisions_identical"]:
+        fails.append("K2 at the retrieval shape differs from the plain version")
+    if fails:
+        raise AssertionError(f"config-4 SLAM: {fails}")
+    return launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -1307,12 +1825,17 @@ def main() -> int:
                      ("sorted_gather_rows", check_k5)):
         entries[name], details[name] = phase(f"check_{name}", fn, rng)
     details["edges"] = phase("check_edges", check_edges, rng)
+    details["depth"] = phase("check_depth", check_depth, rng)
     details["host_breakdown_us"] = phase("host_breakdown", host_breakdown)
 
     phase("small_reference", small_reference)
     scene, views = phase("render", render_smoke_scene)
     launches = phase("config2_images", config2_images, views)
     launches.update(phase("main_path", main_path, scene, views))
+    details["config4_pgo"] = phase("config4_pgo", config4_pgo)
+    config4_launches, details["config4_slam"] = phase("config4_slam", config4_slam)
+    details["launches_by_path"] = dict(main_path_and_config2=dict(launches),
+                                       config4_slam=config4_launches)
     log("phase_seconds", json.dumps(phase_s))
 
     meta = {

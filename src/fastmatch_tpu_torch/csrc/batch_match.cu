@@ -84,7 +84,8 @@ __global__ void batch_match_finalize(const float* __restrict__ part_v1,
 }  // namespace
 
 // mode: 0 exact (a, b float32), 1 fast (a, b bf16), 2 binary (a, b packed
-// words, d words). a2raw (batch, n) and b2raw (batch, m): the unmasked
+// words, d words); any depth (a multiple of 32 values, or of 4 words up to
+// MAX_WORDS): past the resident depth the engine runs its depth loop. a2raw (batch, n) and b2raw (batch, m): the unmasked
 // squared norms, or null when they are a constant below 1e30 (binary),
 // for skipping dead bank tiles (match_tile.cuh). part_* hold (splits,
 // batch, n) partials, col_key (batch, m) keys (unused without
@@ -97,8 +98,8 @@ extern "C" int fm_batch_match(const void* a, const void* b, const float* a2m,
                               unsigned long long* col_key, int* idx, float* dist,
                               bool* valid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bad_depth = mode == 2 ? (d % 4 || d > fm::MAX_WORDS)
-                                   : (d % 32 || d > fm::MAX_DIM);
+  const bool bad_depth = mode == 2 ? (d % 4 || d <= 0 || d > fm::MAX_WORDS)
+                                   : (d % 32 || d <= 0);
   if (bad_depth || cols_per_split % fm::BN || mode < 0 || mode > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

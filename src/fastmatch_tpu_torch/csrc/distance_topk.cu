@@ -62,7 +62,8 @@ __global__ void topk_finalize(const float* __restrict__ part_v1,
 
 }  // namespace
 
-// a, b: float32 (exact) or bfloat16 (fast) rows. part_* hold (splits, n)
+// a, b: float32 (exact) or bfloat16 (fast) rows of any depth d that is a
+// multiple of 32 (past 256 the engine's depth loop). part_* hold (splits, n)
 // partials, col_key (m,) keys; cols_per_split is a multiple of 128.
 extern "C" int fm_distance_topk(const void* a, const void* b, const float* b2m,
                                 const float* a2m, int n, int m, int d, int fast,
@@ -71,7 +72,7 @@ extern "C" int fm_distance_topk(const void* a, const void* b, const float* b2m,
                                 unsigned long long* col_key, int* idx1, float* d1,
                                 float* d2, int* nnb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 32 || d > fm::MAX_DIM || cols_per_split % fm::BN) {
+  if (d % 32 || d <= 0 || cols_per_split % fm::BN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaMemsetAsync(col_key, 0xff, sizeof(unsigned long long) * m, s);

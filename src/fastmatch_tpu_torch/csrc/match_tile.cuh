@@ -43,6 +43,19 @@
 //               ahead; more words run depth chunk by chunk.
 // Query rows past n and bank rows past the range are read clamped and
 // dropped by the epilogue.
+//
+// Depth. The resident query tile bounds the depth a block can hold: 128
+// KiB of fp32 queries at D = 256, and 256 KiB at D = 512, past the 227 KiB
+// a block may have. So deeper rows (DEEP: D > RESIDENT_DIM values, or more
+// than RESIDENT_WORDS packed words) run a depth loop in which the query
+// tile streams chunk by chunk beside the bank tile: every ring stage holds
+// one depth chunk of both (exact: 32 deep; bf16: 64 deep, one 128-byte
+// panel; binary: 8 packed words), and the accumulators stay in registers
+// across a tile's chunks. The queries are then read once per bank tile
+// (from L2) instead of once per block; shared memory no longer grows with
+// the depth, so no depth is refused (binary: up to MAX_WORDS, where the
+// +-1 dot product stays exact as a float). Shallower rows keep the
+// resident layouts above and their code (DEEP is a template argument).
 
 #pragma once
 
@@ -64,14 +77,16 @@ constexpr int THREADS = 256;     // 16 x 16 (exact) or two warpgroups
 constexpr int WARPS = THREADS / 32;
 constexpr float BIG = 3.0e38f;
 constexpr int NO_INDEX = 0x7fffffff;
-constexpr int MAX_DIM = 256;     // fp32 / bf16 depth the kernels take
-constexpr int MAX_WORDS = 64;    // packed words per binary row
+constexpr int RESIDENT_DIM = 256;   // deepest fp32 / bf16 rows with a resident query tile
+constexpr int RESIDENT_WORDS = 64;  // most packed words with resident packed queries
+constexpr int MAX_WORDS = 1 << 16;  // packed words per binary row (|dot| < 2^22)
 constexpr int KC = 32;           // exact: depth chunk of a bank tile
 constexpr int STAGES = 3;        // exact: cp.async ring depth
 constexpr int LDB = KC + 4;      // exact: padded bank chunk stride (floats)
 constexpr int CHUNK_WORDS = 8;   // binary: packed words per depth chunk
 constexpr int BNW = 64;          // tensor-core modes: bank rows per tile
 constexpr int WSTAGES = 4;       // tensor-core modes: bank tiles in flight
+constexpr int KCH = 64;          // bf16, DEEP: depth chunk (one 128-byte panel)
 
 enum { MODE_EXACT = 0, MODE_BF16 = 1, MODE_BINARY = 2 };
 enum { COL_INDEX = 1, COL_VALUE = 2 };
@@ -237,15 +252,28 @@ __device__ __forceinline__ void mma_s8(int* d, uint64_t da, uint64_t db, int acc
 // Dynamic shared memory of one block (host and device agree on it).
 __host__ __device__ inline int panels_of(int depth_bytes) { return (depth_bytes + 127) / 128; }
 
+// Whether rows of depth d (values, or packed words) run the depth loop.
+__host__ __device__ inline bool deep_of(int mode, int d) {
+  return d > (mode == MODE_BINARY ? RESIDENT_WORDS : RESIDENT_DIM);
+}
+
 __host__ __device__ inline size_t smem_bytes(int mode, int d) {
-  if (mode == MODE_EXACT) return sizeof(float) * (BQ * (d + 4) + STAGES * BN * LDB);
+  const bool deep = deep_of(mode, d);
+  if (mode == MODE_EXACT) {
+    // DEEP: a ring of query and bank chunks
+    return sizeof(float) * (deep ? STAGES * (BQ + BN) * LDB : BQ * (d + 4) + STAGES * BN * LDB);
+  }
   if (mode == MODE_BF16) {
+    if (deep) return 1024 + WSTAGES * (BNW + BQ) * 128;  // ring of bank and query panels
     const size_t tile = 128 * panels_of(2 * d);  // bytes per row of a tile
     return 1024 + (BQ + WSTAGES * BNW) * tile;   // 1024: alignment slack
   }
   if (d <= CHUNK_WORDS) return 1024 + (BQ + 2 * BNW) * (32 * d);  // +-1 queries, 2 bank stages
-  // +-1 chunks, the packed bank ring and the packed queries
-  return 1024 + (BQ + BNW) * (32 * CHUNK_WORDS) + (WSTAGES * BNW + BQ) * 4 * d;
+  // +-1 chunks, then the packed bank ring and the packed queries (DEEP: a
+  // ring of packed bank and query chunks)
+  const size_t unpacked = 1024 + (BQ + BNW) * (32 * CHUNK_WORDS);
+  if (deep) return unpacked + WSTAGES * (BNW + BQ) * 4 * CHUNK_WORDS;
+  return unpacked + (WSTAGES * BNW + BQ) * 4 * d;
 }
 
 // Column candidate from two (value, query) pairs of other lanes: the
@@ -304,23 +332,26 @@ struct Block {
 // ---------------------------------------------------------------------------
 // MODE_EXACT: fp32 FMAs on the CUDA cores.
 
-template <int COL>
+template <int COL, bool DEEP>
 __device__ __forceinline__ void simt_tiles(const TileArgs& g, const Block& k,
                                            unsigned char* smem, ColumnScratch& cs) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;   // bank rows tx + 16 j
   const int ty = tid >> 4;   // queries ty + 16 i
   const int warp = tid >> 5;
-  const int d = g.d, lda = d + 4, d4 = d / 4;
+  // DEEP: the query tile is a ring of 32-deep chunks too, one per stage.
+  const int d = g.d, lda = DEEP ? LDB : d + 4, d4 = d / 4;
   float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + BQ * lda;
+  float* Bs = As + (DEEP ? STAGES * BQ * LDB : BQ * lda);
   const float* a = static_cast<const float*>(g.a) + static_cast<size_t>(k.p) * g.n * d;
   const float* b = static_cast<const float*>(g.b) + static_cast<size_t>(k.p) * g.m * d;
 
-  for (int c = tid; c < BQ * d4; c += THREADS) {
-    const int r = c / d4, q = c - r * d4;
-    const int gr = min(k.row0 + r, g.n - 1);
-    cp_async16(As + r * lda + 4 * q, a + static_cast<size_t>(gr) * d + 4 * q);
+  if constexpr (!DEEP) {
+    for (int c = tid; c < BQ * d4; c += THREADS) {
+      const int r = c / d4, q = c - r * d4;
+      const int gr = min(k.row0 + r, g.n - 1);
+      cp_async16(As + r * lda + 4 * q, a + static_cast<size_t>(gr) * d + 4 * q);
+    }
   }
   const int nch = d / KC;
   const int steps = k.ntiles * nch;
@@ -334,6 +365,16 @@ __device__ __forceinline__ void simt_tiles(const TileArgs& g, const Block& k,
       const int r = c / (KC / 4), q = c % (KC / 4);
       const int gc = min(c0 + r, g.m - 1);
       cp_async16(dst + r * LDB + 4 * q, b + static_cast<size_t>(gc) * d + ch * KC + 4 * q);
+    }
+    if constexpr (DEEP) {
+      float* adst = As + (s % STAGES) * BQ * LDB;
+#pragma unroll
+      for (int i = 0; i < BQ * KC / 4 / THREADS; ++i) {
+        const int c = tid + i * THREADS;
+        const int r = c / (KC / 4), q = c % (KC / 4);
+        const int gr = min(k.row0 + r, g.n - 1);
+        cp_async16(adst + r * LDB + 4 * q, a + static_cast<size_t>(gr) * d + ch * KC + 4 * q);
+      }
     }
   };
   if (steps > 0) load_tile(0);
@@ -366,7 +407,7 @@ __device__ __forceinline__ void simt_tiles(const TileArgs& g, const Block& k,
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     }
     const float* Bt = Bs + (s % STAGES) * BN * LDB;
-    const float* At = As + ch * KC;
+    const float* At = DEEP ? As + (s % STAGES) * BQ * LDB : As + ch * KC;
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 4) {
       float4 bv[8];
@@ -444,27 +485,43 @@ __device__ __forceinline__ void simt_tiles(const TileArgs& g, const Block& k,
 // ---------------------------------------------------------------------------
 // MODE_BF16 and MODE_BINARY: wgmma on the tensor cores.
 
+// Stage `c16` 16-byte chunks, from value e0 on, of `rows` bf16 rows (r0 ..,
+// clamped below `limit`; 2 d bytes a row) into the swizzled layout.
+__device__ __forceinline__ void copy_bf16_chunk(unsigned char* dst, const unsigned char* src,
+                                                 int r0, int rows, int limit, int d, int e0,
+                                                 int c16) {
+  for (int c = threadIdx.x; c < rows * c16; c += THREADS) {
+    const int r = c / c16, q = c - r * c16;
+    const int gr = min(r0 + r, limit - 1);
+    cp_async16(dst + sw128_offset(r, q, rows),
+               src + static_cast<size_t>(gr) * 2 * d + 2 * e0 + 16 * q);
+  }
+}
+
 // Stage one bank tile (rows c0 .. c0 + BN - 1, clamped to the bank) of
 // bf16 rows into the swizzled layout; 2 d bytes a row.
 __device__ __forceinline__ void copy_bf16_tile(unsigned char* dst, const unsigned char* src,
                                                 int r0, int rows, int limit, int d) {
-  const int c16 = d / 8;  // 16-byte chunks a row
+  copy_bf16_chunk(dst, src, r0, rows, limit, d, 0, d / 8);
+}
+
+// Stage words w0 .. w0 + cw - 1 of `rows` packed rows (r0 .., clamped below
+// `limit`; row stride w words) into a row-major tile of `dw` words a row.
+__device__ __forceinline__ void copy_packed_chunk(uint32_t* dst, const uint32_t* src, int r0,
+                                                   int rows, int limit, int w, int w0,
+                                                   int cw, int dw) {
+  const int c16 = cw / 4;
   for (int c = threadIdx.x; c < rows * c16; c += THREADS) {
     const int r = c / c16, q = c - r * c16;
     const int gr = min(r0 + r, limit - 1);
-    cp_async16(dst + sw128_offset(r, q, rows), src + static_cast<size_t>(gr) * 2 * d + 16 * q);
+    cp_async16(dst + r * dw + 4 * q, src + static_cast<size_t>(gr) * w + w0 + 4 * q);
   }
 }
 
 // Stage packed words of a bank tile (BN rows x W words, row-major).
 __device__ __forceinline__ void copy_packed(uint32_t* dst, const uint32_t* src, int r0,
                                              int rows, int limit, int w) {
-  const int c16 = w / 4;
-  for (int c = threadIdx.x; c < rows * c16; c += THREADS) {
-    const int r = c / c16, q = c - r * c16;
-    const int gr = min(r0 + r, limit - 1);
-    cp_async16(dst + r * w + 4 * q, src + static_cast<size_t>(gr) * w + 4 * q);
-  }
+  copy_packed_chunk(dst, src, r0, rows, limit, w, 0, w, w);
 }
 
 // Unpack words w0 .. w0 + cw - 1 of `rows` packed rows (row stride w
@@ -487,7 +544,7 @@ __device__ __forceinline__ void unpack_rows(unsigned char* dst, const uint32_t* 
 // once, at the end). Each bank tile costs one block-wide barrier: the
 // barrier that makes tile t's stage visible also frees the stage the
 // next load overwrites (read by tile t - 1's wgmma, waited for).
-template <int MODE, int COL>
+template <int MODE, int COL, bool DEEP>
 __device__ __forceinline__ void wgmma_tiles(const TileArgs& g, const Block& k,
                                             unsigned char* smem_raw, ColumnScratch& cs) {
   using Acc = typename std::conditional<MODE == MODE_BF16, float, int>::type;
@@ -535,14 +592,15 @@ __device__ __forceinline__ void wgmma_tiles(const TileArgs& g, const Block& k,
   const int b_off = wg * 64 * 128;  // this warpgroup's 64 queries in each panel
   const int rlocal = (warp & 3) * 16 + (lane >> 2);
 
-  // wgmma over `steps` 32-byte depth steps of the bank stage Bt.
-  auto mma = [&](Acc* acc, const unsigned char* Bt, int steps) {
+  // wgmma over `steps` 32-byte depth steps of the bank stage Bt and the
+  // query tile At.
+  auto mma = [&](Acc* acc, const unsigned char* Bt, int steps, const unsigned char* At) {
     fence_operands<32>(acc);
     wgmma_fence();
     for (int ks = 0; ks < steps; ++ks) {
       const int off = (ks & 3) * 32;
       const uint64_t da = sw128_desc(Bt + (ks >> 2) * BNW * 128 + off);
-      const uint64_t db = sw128_desc(As + (ks >> 2) * BQ * 128 + b_off + off);
+      const uint64_t db = sw128_desc(At + (ks >> 2) * BQ * 128 + b_off + off);
       if constexpr (MODE == MODE_BF16) {
         mma_bf16(acc, da, db, 1);
       } else {
@@ -627,7 +685,42 @@ __device__ __forceinline__ void wgmma_tiles(const TileArgs& g, const Block& k,
     }
   };
 
-  if constexpr (MODE == MODE_BF16) {
+  if constexpr (MODE == MODE_BF16 && DEEP) {
+    // The depth loop: a ring of WSTAGES stages, each one 64-deep panel of
+    // a bank tile and of the query tile, filled WSTAGES - 1 steps ahead; a
+    // step is one (tile, chunk), the tile's sums stay in acc across chunks.
+    constexpr int STAGE = (BNW + BQ) * 128;
+    const int nch = (d + KCH - 1) / KCH;
+    const int steps = ntiles * nch;
+    auto load_step = [&](int s) {
+      const int t = s / nch, ch = s - t * nch;
+      const int c16 = min(KCH, d - ch * KCH) / 8;
+      unsigned char* dst = base + (s % WSTAGES) * STAGE;
+      copy_bf16_chunk(dst, b, tile_row(t), BNW, g.m, d, ch * KCH, c16);
+      copy_bf16_chunk(dst + BNW * 128, a, k.row0, BQ, g.n, d, ch * KCH, c16);
+    };
+    for (int s = 0; s < WSTAGES - 1; ++s) {
+      if (s < steps) load_step(s);
+      cp_async_commit();
+    }
+    float acc[32];
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<WSTAGES - 2>();  // step s landed
+      fence_async_smem();
+      __syncthreads();
+      if (s + WSTAGES - 1 < steps) load_step(s + WSTAGES - 1);  // the stage step s - 1 held
+      cp_async_commit();
+      const int t = s / nch, ch = s - t * nch;
+      if (ch == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      }
+      const unsigned char* st = base + (s % WSTAGES) * STAGE;
+      mma(acc, st, min(KCH, d - ch * KCH) / 16, st + BNW * 128);
+      if (ch == nch - 1) epilogue(acc, tile_row(t));
+    }
+    cp_async_wait<0>();  // nothing in flight when the block ends
+  } else if constexpr (MODE == MODE_BF16) {
     // A ring of WSTAGES bank tiles, filled WSTAGES - 1 tiles ahead; the
     // queries travel with tile 0.
     auto load_tile = [&](int t) {
@@ -647,7 +740,7 @@ __device__ __forceinline__ void wgmma_tiles(const TileArgs& g, const Block& k,
       float acc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-      mma(acc, Bs + (t % WSTAGES) * BNW * panel, d / 16);
+      mma(acc, Bs + (t % WSTAGES) * BNW * panel, d / 16, As);
       epilogue(acc, tile_row(t));
     }
     cp_async_wait<0>();  // nothing in flight when the block ends
@@ -687,12 +780,53 @@ __device__ __forceinline__ void wgmma_tiles(const TileArgs& g, const Block& k,
       int acc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = 0;
-      mma(acc, Bs + (t & 1) * BNW * panel, cw);
+      mma(acc, Bs + (t & 1) * BNW * panel, cw, As);
       epilogue(acc, tile_row(t));
       if (loader && t + 1 < ntiles) store(pk, (t + 1) & 1);  // read by tile t - 1, done
       fence_async_smem();
       __syncthreads();
     }
+  } else if constexpr (DEEP) {
+    // The depth loop: a ring of WSTAGES stages, each the packed words of
+    // one depth chunk of a bank tile and of the query tile, unpacked to +-1
+    // at their step; a step is one (tile, chunk).
+    constexpr int STAGE_WORDS = (BNW + BQ) * CHUNK_WORDS;
+    uint32_t* ring = Bpk;
+    const int nch = (d + CHUNK_WORDS - 1) / CHUNK_WORDS;
+    const int steps = ntiles * nch;
+    auto load_step = [&](int s) {
+      const int t = s / nch, w0 = (s - t * nch) * CHUNK_WORDS;
+      const int n_w = min(CHUNK_WORDS, d - w0);
+      uint32_t* dst = ring + (s % WSTAGES) * STAGE_WORDS;
+      copy_packed_chunk(dst, bw, tile_row(t), BNW, g.m, d, w0, n_w, CHUNK_WORDS);
+      copy_packed_chunk(dst + BNW * CHUNK_WORDS, aw, k.row0, BQ, g.n, d, w0, n_w, CHUNK_WORDS);
+    };
+    for (int s = 0; s < WSTAGES - 1; ++s) {
+      if (s < steps) load_step(s);
+      cp_async_commit();
+    }
+    int acc[32];
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<WSTAGES - 2>();
+      __syncthreads();  // step s landed; the stage step s - 1 held is free
+      if (s + WSTAGES - 1 < steps) load_step(s + WSTAGES - 1);
+      cp_async_commit();
+      const int t = s / nch, ch = s - t * nch;
+      const int n_w = min(CHUNK_WORDS, d - ch * CHUNK_WORDS);
+      const uint32_t* st = ring + (s % WSTAGES) * STAGE_WORDS;
+      unpack_rows(As, st + BNW * CHUNK_WORDS, BQ, CHUNK_WORDS, 0, n_w);
+      unpack_rows(Bs, st, BNW, CHUNK_WORDS, 0, n_w);
+      fence_async_smem();
+      __syncthreads();
+      if (ch == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0;
+      }
+      mma(acc, Bs, n_w, As);
+      __syncthreads();  // the +-1 chunks may be overwritten
+      if (ch == nch - 1) epilogue(acc, tile_row(t));
+    }
+    cp_async_wait<0>();
   } else {
     // More words: packed queries and a packed ring of bank tiles in shared
     // memory, unpacked one depth chunk at a time.
@@ -719,7 +853,7 @@ __device__ __forceinline__ void wgmma_tiles(const TileArgs& g, const Block& k,
         unpack_rows(Bs, Bp, BNW, d, w0, n_w);
         fence_async_smem();
         __syncthreads();
-        mma(acc, Bs, n_w);
+        mma(acc, Bs, n_w, As);
         __syncthreads();  // the +-1 chunks may be overwritten
       }
       epilogue(acc, tile_row(t));
@@ -822,7 +956,7 @@ __device__ void plan_live_tiles(const TileArgs& g, Block& k, LiveTiles& lt) {
 
 // Exact mode holds an 8 x 8 tile a thread (one block an SM); the tensor-core
 // modes fit two blocks an SM (at most 128 registers a thread).
-template <int MODE, int COL>
+template <int MODE, int COL, bool DEEP>
 __global__ void __launch_bounds__(THREADS, MODE == MODE_EXACT ? 1 : 2)
     match_tiles(const TileArgs g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -844,31 +978,39 @@ __global__ void __launch_bounds__(THREADS, MODE == MODE_EXACT ? 1 : 2)
     plan_live_tiles<TILE>(g, k, tiles);
   }
   if constexpr (MODE == MODE_EXACT) {
-    simt_tiles<COL>(g, k, smem_raw, cs);
+    simt_tiles<COL, DEEP>(g, k, smem_raw, cs);
   } else {
-    wgmma_tiles<MODE, COL>(g, k, smem_raw, cs);
+    wgmma_tiles<MODE, COL, DEEP>(g, k, smem_raw, cs);
   }
 }
 
 // Launch over (query tiles, splits, pairs). The shared-memory limit is
 // raised once per instantiation and device, to what the largest depth
-// needs; each launch asks for what its own depth needs.
-template <int MODE, int COL>
-cudaError_t launch_tiles(const TileArgs& g, int splits, cudaStream_t s) {
+// needs (the depth loop's layout does not grow with the depth); each
+// launch asks for what its own depth needs.
+template <int MODE, int COL, bool DEEP>
+cudaError_t launch_depth(const TileArgs& g, int splits, cudaStream_t s) {
   static unsigned int configured = 0;  // one bit per device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (!(configured & (1u << (dev & 31)))) {
-    const int most = static_cast<int>(smem_bytes(MODE, MODE == MODE_BINARY ? MAX_WORDS : MAX_DIM));
-    err = cudaFuncSetAttribute(match_tiles<MODE, COL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    const int deepest = DEEP ? g.d : MODE == MODE_BINARY ? RESIDENT_WORDS : RESIDENT_DIM;
+    err = cudaFuncSetAttribute(match_tiles<MODE, COL, DEEP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes(MODE, deepest)));
     if (err != cudaSuccess) return err;
     configured |= 1u << (dev & 31);
   }
   const dim3 grid((g.n + BQ - 1) / BQ, splits, g.pairs);
-  match_tiles<MODE, COL><<<grid, THREADS, smem_bytes(MODE, g.d), s>>>(g);
+  match_tiles<MODE, COL, DEEP><<<grid, THREADS, smem_bytes(MODE, g.d), s>>>(g);
   return cudaGetLastError();
+}
+
+template <int MODE, int COL>
+cudaError_t launch_tiles(const TileArgs& g, int splits, cudaStream_t s) {
+  return deep_of(MODE, g.d) ? launch_depth<MODE, COL, true>(g, splits, s)
+                            : launch_depth<MODE, COL, false>(g, splits, s);
 }
 
 }  // namespace

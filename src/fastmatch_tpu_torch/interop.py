@@ -23,25 +23,33 @@ from fastmatch_tpu_torch.core.camera import Pinhole
 from fastmatch_tpu_torch.core.containers import (BinaryDescriptors, Descriptors,
                                                  descriptors_from_numpy, pad_to_capacity)
 from fastmatch_tpu_torch.core.device import resolve_device
-from fastmatch_tpu_torch.core.lie import SE3
+from fastmatch_tpu_torch.core.lie import SE3, Sim3
 from fastmatch_tpu_torch.features.sift import SIFTConfig
 from fastmatch_tpu_torch.pipeline import config as _config
 from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
+from fastmatch_tpu_torch.pipeline.slam import SlamResult
+from fastmatch_tpu_torch.posegraph.pgo import PoseGraph
+from fastmatch_tpu_torch.posegraph.sim3 import Sim3Graph
 
 __all__ = [
     "descriptors_from_numpy", "descriptors_from_arrays", "batched_descriptors_from_numpy",
     "binary_descriptors_from_arrays", "ba_problem_from_numpy",
     "config_from", "reconstruction_from_numpy",
-    "reconstruction_to_numpy",
+    "reconstruction_to_numpy", "pose_graph_from_numpy", "sim3_graph_from_numpy",
+    "slam_state_from_numpy", "slam_state_to_numpy",
 ]
-
-# The JAX package's matcher backend names and the port's.
-_BACKENDS = {"jnp": "plain", "pallas": "kernel"}
 
 # Map state of a Reconstruction: arrays and counters.
 MAP_ARRAYS = ("R", "t", "pose_mask", "points", "pt_mask", "pt_desc", "obs_cam",
               "obs_pt", "obs_uv", "obs_mask")
 MAP_COUNTERS = ("n_frames", "n_points", "n_obs")
+
+
+def _field(o, name, default=None, required=True):
+    """Field ``name`` of a dict or an object with that attribute."""
+    if isinstance(o, dict):
+        return o[name] if required else o.get(name, default)
+    return getattr(o, name) if required else getattr(o, name, default)
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -92,28 +100,20 @@ def ba_problem_from_numpy(R, t, points, cam_idx, pt_idx, uv, obs_mask, cam_mask,
 def config_from(other) -> _config.PipelineConfig:
     """The port's PipelineConfig holding the same values as ``other``, any
     object with the JAX package's field names (its PipelineConfig, or a
-    nested dict). The matcher backend names are translated ("jnp" ->
-    "plain", "pallas" -> "kernel"); everything else is copied."""
-
-    def get(o, name):
-        return o[name] if isinstance(o, dict) else getattr(o, name)
+    nested dict). Every value is copied as it is, the matcher backend name
+    included (the port takes the JAX package's names), so the two configs
+    hash alike."""
 
     def build(cls, o):
-        kw = {}
-        for f in dataclasses.fields(cls):
-            v = get(o, f.name)
-            if cls is _config.MatchingConfig and f.name == "backend":
-                v = _BACKENDS.get(v, v)
-            kw[f.name] = v
-        return cls(**kw)
+        return cls(**{f.name: _field(o, f.name) for f in dataclasses.fields(cls)})
 
-    sift = get(other, "sift")
+    sift = _field(other, "sift")
     return _config.PipelineConfig(
-        sift=SIFTConfig(**{k: get(sift, k) for k in SIFTConfig._fields}),
-        matching=build(_config.MatchingConfig, get(other, "matching")),
-        ransac=build(_config.RansacConfig, get(other, "ransac")),
-        ba=build(_config.BAConfig, get(other, "ba")),
-        map=build(_config.MapConfig, get(other, "map")),
+        sift=SIFTConfig(**{k: _field(sift, k) for k in SIFTConfig._fields}),
+        matching=build(_config.MatchingConfig, _field(other, "matching")),
+        ransac=build(_config.RansacConfig, _field(other, "ransac")),
+        ba=build(_config.BAConfig, _field(other, "ba")),
+        map=build(_config.MapConfig, _field(other, "map")),
     )
 
 
@@ -121,15 +121,11 @@ def reconstruction_from_numpy(state, cfg, camera: Pinhole, device=None) -> Recon
     """A Reconstruction whose map state is copied from ``state`` (a dict, or
     any object with the JAX Reconstruction's attribute names)."""
     rec = Reconstruction(cfg=cfg, camera=camera, device=resolve_device(device))
-
-    def get(name):
-        return state[name] if isinstance(state, dict) else getattr(state, name)
-
     for name in MAP_ARRAYS:
         ref = getattr(rec, name)
-        setattr(rec, name, np.array(get(name), dtype=ref.dtype, copy=True))
+        setattr(rec, name, np.array(_field(state, name), dtype=ref.dtype, copy=True))
     for name in MAP_COUNTERS:
-        setattr(rec, name, int(get(name)))
+        setattr(rec, name, int(_field(state, name)))
     return rec
 
 
@@ -139,3 +135,66 @@ def reconstruction_to_numpy(rec) -> dict:
     out = {name: np.array(getattr(rec, name), copy=True) for name in MAP_ARRAYS}
     out.update({name: int(getattr(rec, name)) for name in MAP_COUNTERS})
     return out
+
+
+def _graph_from_numpy(cls, group, g, device):
+    """A pose graph ``cls`` of the port from the arrays of the JAX
+    package's (or any object or dict with its field names; each pose batch
+    a tuple of the group's fields, such as (R, t)), optional fields
+    included."""
+    kinds = {"edge_i": torch.int64, "edge_j": torch.int64, "prior_idx": torch.int64,
+             "prior_T_idx": torch.int64, "pose_mask": torch.bool, "fixed": torch.bool}
+    fields = {}
+    for name in cls._fields:
+        v = _field(g, name, required=name not in cls._field_defaults)
+        if v is None:
+            fields[name] = None
+        elif name in ("poses", "Z", "prior_T"):
+            fields[name] = group(*(_t(x, device, torch.float32) for x in v))
+        else:
+            fields[name] = _t(v, device, kinds.get(name, torch.float32))
+    return cls(**fields)
+
+
+def pose_graph_from_numpy(g, device=None) -> PoseGraph:
+    """A PoseGraph from the JAX package's PoseGraph arrays (poses, Z and
+    prior_T as (R, t) pairs), its optional priors included."""
+    return _graph_from_numpy(PoseGraph, SE3, g, device)
+
+
+def sim3_graph_from_numpy(g, device=None) -> Sim3Graph:
+    """A Sim3Graph from the JAX package's Sim3Graph arrays (poses and Z as
+    (R, t, s) triples)."""
+    return _graph_from_numpy(Sim3Graph, Sim3, g, device)
+
+
+def slam_state_to_numpy(out, kp_landmark=None) -> dict:
+    """A SLAM run's state (either package's SlamResult): the map state of
+    its Reconstruction, ``odo_edges`` and ``loop_edges`` as lists of
+    (i, j, Z R, Z t) with numpy arrays, ``pgo_runs``, and the per-frame
+    keypoint -> landmark arrays ``kp_landmark`` when given."""
+    state = reconstruction_to_numpy(out.rec)
+
+    def edges(es):
+        return [(int(i), int(j), np.array(R, np.float32, copy=True),
+                 np.array(t, np.float32, copy=True)) for i, j, R, t in es]
+
+    state.update(odo_edges=edges(out.odo_edges), loop_edges=edges(out.loop_edges),
+                 pgo_runs=int(out.pgo_runs),
+                 kp_landmark=None if kp_landmark is None else
+                 [np.array(k, np.int64, copy=True) for k in kp_landmark])
+    return state
+
+
+def slam_state_from_numpy(state: dict, cfg, camera: Pinhole, device=None):
+    """(SlamResult, kp_landmark) of the port from ``slam_state_to_numpy``'s
+    dict: the map state on ``device`` and the edge lists, so that both
+    packages continue from one state."""
+    out = SlamResult(rec=reconstruction_from_numpy(state, cfg, camera, device))
+    for name in ("odo_edges", "loop_edges"):
+        getattr(out, name).extend((int(i), int(j), np.array(R, np.float32, copy=True),
+                                   np.array(t, np.float32, copy=True))
+                                  for i, j, R, t in state[name])
+    out.pgo_runs = int(state.get("pgo_runs", 0))
+    kp = state.get("kp_landmark")
+    return out, None if kp is None else [np.array(k, np.int64, copy=True) for k in kp]

@@ -36,8 +36,10 @@ from fastmatch_tpu_torch.matching.matcher import BIG
 # The JAX package's dispatch limit (its VMEM-resident layout): match_batch
 # sends larger banks to the per-pair path, so both packages decide alike.
 MAX_RESIDENT_M = 4096
-MAX_WORDS = 64    # packed words per binary row the kernel takes
-MAX_DIM = 256     # float depth the kernel takes (csrc/match_tile.cuh)
+# Packed words per binary row the kernel takes: the +-1 dot product stays
+# an exact float below 2^22 (csrc/match_tile.cuh). Float rows of any depth
+# that is a multiple of 128 run (past 256, the engine's depth loop).
+MAX_WORDS = 1 << 16
 # Blocks of each mode (exact, fast, binary) that share one SM at config 2's
 # widths: the split plan fills the card once with them.
 _BLOCKS_PER_SM = (1, 2, 2)
@@ -165,8 +167,6 @@ def match_batch_fused(desc_a: Descriptors, desc_b: Descriptors, ratio=0.8,
             raise ValueError(f"{name} is on {t.device}, not {dev}")
     B, n, d = op_a.shape
     m = op_b.shape[1]
-    if not binary and d > MAX_DIM:
-        raise ValueError(f"descriptor dim {d} exceeds the kernel's {MAX_DIM}")
     fn = _build.entry("batch_match", "fm_batch_match", _ARGTYPES)
     mode = 2 if binary else 1 if fast else 0  # csrc/batch_match.cu: fm_batch_match
     splits, width = split_plan(B, n, m, sm_count(dev) * _BLOCKS_PER_SM[mode])

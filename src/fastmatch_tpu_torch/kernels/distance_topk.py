@@ -5,7 +5,9 @@ kernel wrapper: on a CUDA tensor it launches ``csrc/distance_topk.cu`` (one
 launch for any bank size: the TPU kernel's 4096-row limit and chunked merge
 were a VMEM artifact), on a CPU tensor it takes ``distance_topk_plain``,
 the same function in plain PyTorch. ``match_pair_fused`` adds the ratio test
-and the mutual check, as ``_match_pair_pallas_jit`` does.
+and the mutual check, as ``_match_pair_pallas_jit`` does. Any depth that is
+a multiple of 32 runs on the card: past 256 the tile engine streams the
+query tile in depth chunks (``csrc/match_tile.cuh``, "Depth").
 
 Semantics (decision-identical to ``matching/matcher.match_pair_plain``):
 rows are ordered by ``-2 a.b + |b|^2(masked)`` and columns by
@@ -124,8 +126,9 @@ def distance_topk_split_plain(a, b, b2m, a2m, cols_per_split: int, fast: bool = 
 def _check_inputs(a, b, b2m, a2m):
     n, d = a.shape
     m, d2 = b.shape
-    if d != d2 or d % 32 or d > 256:
-        raise ValueError(f"descriptor dims must match, divide by 32 and be <= 256; got {d}/{d2}")
+    if d != d2 or d % 32 or d == 0:
+        raise ValueError(f"descriptor dims must match and be a positive multiple of 32; "
+                         f"got {d}/{d2}")
     for name, t, shape in (("a", a, (n, d)), ("b", b, (m, d)), ("b2m", b2m, (m,)),
                            ("a2m", a2m, (n,))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape:

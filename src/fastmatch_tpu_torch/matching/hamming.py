@@ -10,7 +10,7 @@ the L2 kernels is the popcount matcher's.
 - ``match_pair_hamming_plain`` (popcount of xor, the anchor) and
   ``hamming_distance_matrix``;
 - ``match_pair_hamming``: "mxu" runs the per-pair kernel K2 in fast mode on
-  the +-1 vectors;
+  the +-1 vectors, "mxu_jnp" the plain L2 matcher on them;
 - ``match_batch_hamming``: "mxu" runs the batched kernel K1 in binary mode
   on the packed words (``const_sq_norm = n_bits``), or a loop of K2 for
   banks above ``MAX_RESIDENT_M`` rows.
@@ -109,7 +109,8 @@ def match_pair_hamming(desc_a: BinaryDescriptors, desc_b: BinaryDescriptors,
     ``device="cpu"``); distances are Hamming counts.
 
     backend: "popcount" (the anchor), "mxu" (+-1 vectors through the
-    per-pair kernel K2 in fast mode, exact), or "auto" (mxu on cuda,
+    per-pair kernel K2 in fast mode, exact), "mxu_jnp" (+-1 vectors through
+    the plain L2 matcher, the JAX package's name), or "auto" (mxu on cuda,
     popcount on cpu). ``ratio`` is the linear Hamming ratio."""
     dev = resolve_device(device)
     desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
@@ -117,10 +118,11 @@ def match_pair_hamming(desc_a: BinaryDescriptors, desc_b: BinaryDescriptors,
         backend = "mxu" if dev.type == "cuda" else "popcount"
     if backend == "popcount":
         return match_pair_hamming_plain(desc_a, desc_b, ratio=ratio, cross_check=cross_check)
-    if backend == "mxu":
+    if backend in ("mxu", "mxu_jnp"):
         return _quarter(match_pair(_as_signed(desc_a), _as_signed(desc_b),
                                    ratio=_ratio_sqrt(ratio), cross_check=cross_check,
-                                   backend="kernel", precision="fast", device=dev))
+                                   backend="kernel" if backend == "mxu" else "plain",
+                                   precision="fast", device=dev))
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -131,14 +133,22 @@ def match_batch_hamming(desc_a: BinaryDescriptors, desc_b: BinaryDescriptors,
 
     backend: "mxu" (banks of at most ``MAX_RESIDENT_M`` rows: the batched
     kernel K1 on the packed words in one launch; larger banks: a loop of
-    K2), "popcount" (a loop of the anchor), or "auto" (mxu on cuda,
-    popcount on cpu; the JAX package's default is "popcount")."""
+    K2), "mxu_jnp" (a loop of the +-1 plain route of ``match_pair_hamming``),
+    "popcount" (a loop of the anchor), or "auto" (mxu on cuda, popcount on
+    cpu; the JAX package's default is "popcount")."""
     from fastmatch_tpu_torch.kernels.batch_match import MAX_RESIDENT_M, match_batch_fused
 
     dev = resolve_device(device)
     desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
     if backend == "auto":
         backend = "mxu" if dev.type == "cuda" else "popcount"
+    if backend == "mxu_jnp":
+        pairs = zip(desc_a.packed, desc_a.mask, desc_b.packed, desc_b.mask)
+        return stack_matches(
+            match_pair_hamming(BinaryDescriptors(pa, ma), BinaryDescriptors(pb, mb),
+                               ratio=ratio, cross_check=cross_check, backend="mxu_jnp",
+                               device=dev)
+            for pa, ma, pb, mb in pairs)
     if backend == "mxu":
         if desc_b.packed.shape[-2] <= MAX_RESIDENT_M:
             m = match_batch_fused(

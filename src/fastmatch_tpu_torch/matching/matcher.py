@@ -26,6 +26,21 @@ from fastmatch_tpu_torch.core.device import resolve_device
 # package's value: inf - inf would poison the ratio test).
 BIG = float(np.float32(3.0e38))
 
+# The JAX package's backend names and the port's routes they name: a config
+# carried across keeps its name (and its config_hash) and its meaning.
+BACKEND_ALIASES = {"jnp": "plain", "pallas": "kernel"}
+
+
+def resolve_backend(backend: str, dev: torch.device) -> str:
+    """"plain" or "kernel" for a backend name of either package ("auto":
+    the kernel on cuda, the plain version on cpu)."""
+    backend = BACKEND_ALIASES.get(backend, backend)
+    if backend == "auto":
+        backend = "kernel" if dev.type == "cuda" else "plain"
+    if backend not in ("plain", "kernel"):
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
+
 
 def match_pair_plain(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
                      cross_check: bool = True) -> Matches:
@@ -65,22 +80,19 @@ def match_pair(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
     unless ``device="cpu"``).
 
     backend: "auto" (the fused kernel on cuda, the plain version on cpu),
-    "plain", or "kernel" (the kernel wrapper, which takes its own plain
-    version on a CPU tensor). precision (kernel backend only): "exact" or
-    "fast" (bf16 inputs, fp32 accumulation).
+    "plain" (or the JAX package's "jnp"), or "kernel" (or "pallas": the
+    kernel wrapper, which takes its own plain version on a CPU tensor).
+    precision (kernel backend only): "exact" or "fast" (bf16 inputs, fp32
+    accumulation).
     """
     dev = resolve_device(device)
     desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
-    if backend == "auto":
-        backend = "kernel" if dev.type == "cuda" else "plain"
-    if backend == "plain":
+    if resolve_backend(backend, dev) == "plain":
         return match_pair_plain(desc_a, desc_b, ratio=ratio, cross_check=cross_check)
-    if backend == "kernel":
-        from fastmatch_tpu_torch.kernels.distance_topk import match_pair_fused
+    from fastmatch_tpu_torch.kernels.distance_topk import match_pair_fused
 
-        return match_pair_fused(desc_a, desc_b, ratio=ratio,
-                                cross_check=cross_check, precision=precision)
-    raise ValueError(f"unknown backend {backend!r}")
+    return match_pair_fused(desc_a, desc_b, ratio=ratio,
+                            cross_check=cross_check, precision=precision)
 
 
 def _to(desc: Descriptors, dev) -> Descriptors:
@@ -97,8 +109,8 @@ def match_batch(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
     """Batched matcher: containers carry a leading batch axis (B, C, ...).
 
     backend: "auto" (the kernels on cuda, the plain version on cpu; the JAX
-    package's default is its plain "jnp"), "plain" (a loop of
-    ``match_pair_plain``), or "kernel": banks of at most ``MAX_RESIDENT_M``
+    package's default is its plain "jnp"), "plain" or "jnp" (a loop of
+    ``match_pair_plain``), or "kernel" or "pallas": banks of at most ``MAX_RESIDENT_M``
     rows go to the batched kernel K1 in one launch, larger banks to a loop
     of ``match_pair`` on the per-pair kernel K2. precision (kernel backend
     only): "exact" or "fast" (bf16 operands, value-based mutual check in K1).
@@ -109,10 +121,7 @@ def match_batch(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
         raise ValueError(f"precision must be 'exact' or 'fast', got {precision!r}")
     dev = resolve_device(device)
     desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
-    if backend == "auto":
-        backend = "kernel" if dev.type == "cuda" else "plain"
-    if backend not in ("plain", "kernel"):
-        raise ValueError(f"unknown backend {backend!r}")
+    backend = resolve_backend(backend, dev)
     if backend == "kernel" and desc_b.data.shape[-2] <= MAX_RESIDENT_M:
         return match_batch_fused(desc_a, desc_b, ratio=ratio, cross_check=cross_check,
                                  fast=precision == "fast")

@@ -4,8 +4,10 @@ The port's own copy of ``fastmatch_tpu/pipeline/config.py`` (same fields,
 same defaults, same ``config_hash``), so a configuration hashes identically
 in both packages. Fields that only the JAX package's engines read
 (``fx_hint``, ``local_obs_cap``, the interval budgets) are kept for the
-hash. ``MatchingConfig.backend`` takes the port's names: "auto" (by
-device), "plain" or "kernel".
+hash. ``MatchingConfig.backend`` takes the names of both packages: "auto"
+(by device), "plain" or the JAX package's "jnp", "kernel" or "pallas"
+(``matching.matcher.resolve_backend``), so a config carried across keeps
+its name and its hash.
 """
 
 from __future__ import annotations

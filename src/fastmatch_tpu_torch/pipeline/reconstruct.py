@@ -43,7 +43,8 @@ from fastmatch_tpu_torch.matching.matcher import match_pair
 from fastmatch_tpu_torch.pipeline.config import PipelineConfig
 from fastmatch_tpu_torch.pipeline.tracker import compact_obs
 
-STAGES = ("sift", "match", "ransac_pnp", "triangulate", "ba")
+# "loop" (loop retrieval) and "pgo" (pose-graph solves) are SLAM's stages.
+STAGES = ("sift", "match", "ransac_pnp", "triangulate", "ba", "loop", "pgo")
 
 
 @dataclass
@@ -301,13 +302,16 @@ def detect_features(images, cfg: PipelineConfig, device=None, stage_seconds=None
 
 
 def reconstruct(features, camera: Pinhole, cfg: PipelineConfig = PipelineConfig(),
-                images=None, seed: int = 0, device=None) -> Reconstruction:
+                images=None, seed: int = 0, device=None, metrics=None) -> Reconstruction:
     """Run incremental SfM over a sequence on ``device`` (``cuda`` unless
     ``device="cpu"``).
 
     features: list of (xy_px (N, 2) f32, desc (N, 128) f32, mask (N,) bool)
     per frame, or None with ``images`` given: detection then runs here
-    through ``detect_and_describe``.
+    through ``detect_and_describe``. metrics: optional
+    ``utils.metrics.MetricsLogger``, given the JAX package's events: a
+    "frame" event per frame from 2 on, and a "ba" event (cost0, cost) per
+    bundle adjustment of the loop and at the end (``final=True``).
     """
     dev = resolve_device(device)
     rec = Reconstruction(cfg=cfg, camera=camera, device=dev)
@@ -431,8 +435,14 @@ def reconstruct(features, camera: Pinhole, cfg: PipelineConfig = PipelineConfig(
         stats = {"frame": f, "n_kp": int(mf.sum()), "n_pnp_inliers": int(inl.sum()),
                  "n_new_pts": int(keep.sum()) if len(q2) else 0}
         rec.frame_stats.append(stats)
+        if metrics:
+            metrics.log("frame", **stats, n_points=int(rec.pt_mask.sum()))
         if cfg.ba.interval and (f % cfg.ba.interval == 0):
-            rec.run_ba()
+            c0, c1 = rec.run_ba()
+            if metrics:
+                metrics.log("ba", frame=f, cost0=c0, cost=c1)
 
-    rec.run_ba()
+    c0, c1 = rec.run_ba()
+    if metrics:
+        metrics.log("ba", frame=len(features) - 1, cost0=c0, cost=c1, final=True)
     return rec

@@ -366,3 +366,46 @@ def test_default_device_is_cuda(banks):
                  lambda: reconstruction_from_numpy({}, None, None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+# -- depth past 256 (the tile engine's depth loop) -----------------------------------
+
+
+@pytest.mark.parametrize("dim", [384, 512])
+def test_depth_beyond_256_vs_jax_kernel(dim):
+    """K1's plain version (the reference the depth loop is held to on the
+    card) against the JAX kernel in interpret mode at D = 384 and 512: exact
+    mode's decisions identical, distances to 1e-5."""
+    rng = np.random.default_rng(dim)
+    B, N, M = 2, 128, 256
+    a = np.abs(rng.standard_normal((B, N, dim))).astype(np.float32)
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b = np.abs(rng.standard_normal((B, M, dim))).astype(np.float32)
+    b[:, :N] = np.abs(a[:, rng.permutation(N)]
+                      + 0.05 * np.sqrt(128 / dim) * rng.standard_normal((B, N, dim)))
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    ma, mb = np.ones((B, N), bool), np.ones((B, M), bool)
+    mb[:, ::9] = False
+    ref = j_match_batch_fused(*_jax(a, ma, b, mb), interpret=True)
+    port = k1.match_batch_fused(*_port(a, ma, b, mb))
+    _assert_same(port, ref)
+    assert port.valid.numpy().sum() > 50
+
+
+def test_depth_checks_as_jax():
+    """K1's input checks: D = 384 and 512 and 128 packed words (4096 bits)
+    taken on any device (the card runs them through the depth loop); D =
+    100 refused, as the JAX kernel refuses it."""
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    ones = np.ones((1, 8), bool)
+    for d in (384, 512):
+        k1._prepare(*_port(z(1, 8, d), ones, z(1, 16, d), np.ones((1, 16), bool)), 0.8,
+                    False, None, False)
+    words = np.zeros((1, 8, 128), np.int32)
+    k1._prepare(Descriptors(torch.from_numpy(words), torch.from_numpy(ones)),
+                Descriptors(torch.from_numpy(words), torch.from_numpy(ones)), 0.8, True,
+                4096.0, True)
+    jmsg = _err(lambda: j_match_batch_fused(*_jax(z(1, 8, 100), ones, z(1, 8, 100), ones),
+                                            interpret=True))
+    tmsg = _err(lambda: k1.match_batch_fused(*_port(z(1, 8, 100), ones, z(1, 8, 100), ones)))
+    assert tmsg.split()[0] == jmsg.split()[0] == "descriptor"

@@ -28,7 +28,10 @@ from fastmatch_tpu.matching.matcher import BIG as J_BIG
 from fastmatch_tpu.matching.matcher import match_pair_jnp
 from synth import corresponding_descriptors, random_descriptors
 
-from fastmatch_tpu_torch.interop import descriptors_from_arrays, descriptors_from_numpy
+from fastmatch_tpu.core.containers import binary_descriptors_from_numpy as j_binary_from_numpy
+from fastmatch_tpu_torch.core.containers import BinaryDescriptors, Descriptors
+from fastmatch_tpu_torch.interop import (binary_descriptors_from_arrays, descriptors_from_arrays,
+                                         descriptors_from_numpy)
 from fastmatch_tpu_torch.kernels import batch_match as k1
 from fastmatch_tpu_torch.kernels import distance_topk as k2
 from fastmatch_tpu_torch.matching import hamming as tham
@@ -244,8 +247,10 @@ def test_bad_arguments_rejected(rng):
     _, (ta, tb) = _both(random_descriptors(rng, 8), random_descriptors(rng, 8))
     with pytest.raises(ValueError, match="precision"):
         match_pair(ta, tb, backend="kernel", precision="bf16", device="cpu")
+    # "pallas" and "jnp" are the JAX package's names and are taken
+    # (test_backend_names_route_as_jax); an unknown name is refused.
     with pytest.raises(ValueError, match="backend"):
-        match_pair(ta, tb, backend="pallas", device="cpu")
+        match_pair(ta, tb, backend="mxu", device="cpu")
 
 
 def test_default_device_is_cuda(rng):
@@ -331,3 +336,106 @@ def test_binary_route_is_popcount(words):
         np.testing.assert_array_equal(h.numpy(), jh)
         np.testing.assert_array_equal(neg2[p].numpy(), 4 * jh - 2 * 32 * words)
     assert int(neg2[0, 4, 3]) == -64 * words and int(neg2[0, 2, 5]) == 64 * words
+
+
+# -- depth past 256 (the tile engine's depth loop) and the backend names ---------
+
+
+@pytest.mark.parametrize("dim", [384, 512])
+def test_depth_beyond_256_vs_jax_kernel(dim):
+    """The plain version of K2 (the reference the depth loop is held to on
+    the card) against the JAX kernel in interpret mode at D = 384 and 512:
+    raw outputs and matcher decisions identical."""
+    rng = np.random.default_rng(dim)
+    a, b, gt = corresponding_descriptors(rng, 200, noise=0.02, n_distract=56)
+    a = np.abs(np.concatenate([a, rng.standard_normal((200, dim - 128)) * 0.05], 1))
+    b = np.abs(np.concatenate([b, rng.standard_normal((256, dim - 128)) * 0.05], 1))
+    a = (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(np.float32)
+    b = (b / np.linalg.norm(b, axis=1, keepdims=True)).astype(np.float32)
+    a2, b2 = (a * a).sum(1), (b * b).sum(1)
+    b2[::7] = J_BIG
+    ji1, jd1, jd2, jnnb = j_distance_topk(*(jnp.asarray(x) for x in (a, b, b2, a2)),
+                                          interpret=True)
+    k2._check_inputs(*(torch.from_numpy(x) for x in (a, b, b2, a2)))  # accepted
+    ti1, td1, td2, tnnb = k2.distance_topk(*(torch.from_numpy(x) for x in (a, b, b2, a2)))
+    np.testing.assert_array_equal(ti1.numpy(), np.asarray(ji1))
+    np.testing.assert_array_equal(tnnb.numpy(), np.asarray(jnnb))
+    np.testing.assert_allclose(td1.numpy(), np.asarray(jd1), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), rtol=1e-5, atol=1e-5)
+    (ja, jb), (ta, tb) = _both(a, b)
+    port = match_pair(ta, tb, backend="kernel", device="cpu")
+    _assert_same(port, match_pair_pallas(ja, jb, interpret=True))
+    assert port.valid.numpy().sum() > 100
+
+
+def test_depth_checks_as_jax():
+    """K2's input checks: D = 384 and 512 taken (the card runs them through
+    the depth loop), D = 100 refused, as the JAX kernel refuses it."""
+    def arrays(d):
+        a, b = np.zeros((8, d), np.float32), np.zeros((16, d), np.float32)
+        return a, b, np.zeros(16, np.float32), np.zeros(8, np.float32)
+
+    for d in (384, 512):
+        k2._check_inputs(*(torch.from_numpy(x) for x in arrays(d)))
+    with pytest.raises(ValueError, match="dim"):
+        j_distance_topk(*(jnp.asarray(x) for x in arrays(100)), interpret=True)
+    with pytest.raises(ValueError, match="dim"):
+        k2._check_inputs(*(torch.from_numpy(x) for x in arrays(100)))
+
+
+def test_backend_names_route_as_jax(rng, monkeypatch):
+    """The JAX package's backend names reach the port's routes: "jnp" the
+    plain matcher, "pallas" the kernel wrapper, and the Hamming matcher's
+    "mxu_jnp" the +-1 vectors through the plain matcher, equal to the JAX
+    package's "mxu_jnp" bit for bit."""
+    from fastmatch_tpu.matching import hamming as jham
+    from fastmatch_tpu_torch.matching import matcher as tmatcher
+
+    calls = []
+    plain, fused = tmatcher.match_pair_plain, k2.match_pair_fused
+    monkeypatch.setattr(tmatcher, "match_pair_plain",
+                        lambda *a, **k: calls.append("plain") or plain(*a, **k))
+    monkeypatch.setattr(k2, "match_pair_fused",
+                        lambda *a, **k: calls.append("kernel") or fused(*a, **k))
+    a, b = random_descriptors(rng, 64), random_descriptors(rng, 80)
+    _, (ta, tb) = _both(a, b)
+    for name, route in (("jnp", "plain"), ("plain", "plain"), ("pallas", "kernel"),
+                        ("kernel", "kernel")):
+        calls.clear()
+        match_pair(ta, tb, backend=name, device="cpu")
+        assert calls == [route], (name, calls)
+    stack = lambda d: Descriptors(d.data[None], d.mask[None])  # noqa: E731
+    for name, route in (("jnp", "plain"), ("pallas", "kernel")):
+        calls.clear()
+        tmatcher.match_batch(stack(ta), stack(tb), backend=name, device="cpu")
+        assert calls == ([route] if route == "plain" else []), (name, calls)
+    bits = rng.integers(0, 2 ** 32, size=(2, 300, 8), dtype=np.uint64).astype(np.uint32)
+    bits[1, :150] = bits[0, :150]
+    ja, jb = (j_binary_from_numpy(bits[i], 320) for i in (0, 1))
+    pa, pb = (binary_descriptors_from_arrays(np.asarray(d.packed), np.asarray(d.mask),
+                                             device="cpu") for d in (ja, jb))
+    calls.clear()
+    got = tham.match_pair_hamming(pa, pb, backend="mxu_jnp", device="cpu")
+    assert calls == ["plain"]
+    ref = jham.match_pair_hamming(ja, jb, backend="mxu_jnp")
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert got.valid.numpy().sum() >= 100
+    both = BinaryDescriptors(pa.packed[None], pa.mask[None]), BinaryDescriptors(
+        pb.packed[None], pb.mask[None])
+    batched = tham.match_batch_hamming(*both, backend="mxu_jnp", device="cpu")
+    for x, y in zip(batched, ref):
+        np.testing.assert_array_equal(x.numpy()[0], np.asarray(y))
+
+
+def test_pallas_config_hashes_alike():
+    from fastmatch_tpu.pipeline import config as jconfig
+    from fastmatch_tpu_torch import interop
+    from fastmatch_tpu_torch.pipeline import config as tconfig
+
+    for name in ("pallas", "jnp", "auto"):
+        j = jconfig.PipelineConfig(matching=jconfig.MatchingConfig(backend=name))
+        t = tconfig.PipelineConfig(matching=tconfig.MatchingConfig(backend=name))
+        assert t.config_hash() == j.config_hash()
+        assert interop.config_from(j).config_hash() == j.config_hash()
+        assert interop.config_from(j).matching.backend == name

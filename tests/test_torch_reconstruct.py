@@ -49,8 +49,11 @@ def test_config_hash_matches_jax():
     assert tconfig.PipelineConfig().config_hash() == jconfig.PipelineConfig().config_hash()
     j = jax_small_cfg()
     assert interop.config_from(j).config_hash() == j.config_hash()
+    # The backend name is carried as it is (the port takes the JAX names),
+    # so the carried config keeps its hash.
     j = jconfig.PipelineConfig(matching=jconfig.MatchingConfig(backend="jnp", ratio=0.7))
-    assert interop.config_from(j).matching == tconfig.MatchingConfig(backend="plain", ratio=0.7)
+    assert interop.config_from(j).matching == tconfig.MatchingConfig(backend="jnp", ratio=0.7)
+    assert interop.config_from(j).config_hash() == j.config_hash()
 
 
 def test_sequence_ate_synthetic_features(rng):
@@ -160,3 +163,21 @@ def test_reconstruct_default_device_is_cuda(rng):
     scene = SyntheticScene(rng, n_points=50, n_frames=3)
     with pytest.raises(RuntimeError, match="CUDA"):
         reconstruct(synthetic_features(rng, scene), Pinhole.from_K(scene.K))
+
+
+def test_reconstruct_with_the_jax_backend_name():
+    """A config naming the JAX package's "pallas" backend hashes as it does
+    there and runs the port's reconstruct (the kernel route, which takes
+    its plain version on CPU tensors)."""
+    j = jconfig.PipelineConfig(matching=jconfig.MatchingConfig(backend="pallas"),
+                               ba=jconfig.BAConfig(interval=3, max_iters=6, pcg_iters=20),
+                               map=jconfig.MapConfig(max_frames=8, max_points=2048,
+                                                     max_obs=16384))
+    cfg = interop.config_from(j)
+    assert cfg.matching.backend == "pallas" and cfg.config_hash() == j.config_hash()
+    rng = np.random.default_rng(3)
+    scene = SyntheticScene(rng, n_points=200, n_frames=6)
+    rec = reconstruct(synthetic_features(rng, scene, noise_px=0.3), Pinhole.from_K(scene.K),
+                      cfg, device="cpu")
+    assert rec.n_frames == 6
+    assert float(ate_rmse(rec.camera_centers(), gt_centers(scene)[:6])) < 0.05

@@ -1,11 +1,13 @@
 """Where the time goes on the port's main path, on one GPU.
 
 Runs ``reconstruct(images=...)`` of the smoke scene (``chip_smoke.SMOKE_SCENE``,
-640x480, default ``PipelineConfig``) three times on ``cuda``: once to warm up
+640x480, default ``PipelineConfig``), or with ``--path config4`` SIFT and
+``slam`` on the config-4 scene as ``chip_smoke.config4_slam`` runs them,
+three times on ``cuda``: once to warm up
 (kernel builds, cuBLAS/cuSOLVER handles, the caching allocator), once timed,
 and once under ``torch.profiler`` with CPU and CUDA activities (the
 profiler's own host cost more than doubles that run's wall time). Prints one
-JSON line and writes the same to ``chiprun_out/profile_main_path.json``:
+JSON line and writes the same to ``chiprun_out/profile_<path>.json``:
 
 - wall seconds and host seconds per pipeline stage
   (``Reconstruction.stage_seconds``) of the timed run, and of the profiled
@@ -19,7 +21,7 @@ JSON line and writes the same to ``chiprun_out/profile_main_path.json``:
   profiled run records each ``match_pair_fused`` call's shape in order and
   pairs the i-th with the i-th K2 tile kernel on the device's timeline.
 
-    python tools/profile_main_path.py [--frames N] [--top K]
+    python tools/profile_main_path.py [--path config3|config4] [--frames N] [--top K]
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ sys.path.insert(0, ROOT)
 
 # The port's kernels by their CUDA function names (csrc/); K3's earlier
 # one-segment kernel (gather_patches_kernel) too, for older checkouts.
-# match_tiles is K1's and K2's shared engine; the main path runs only K2's.
+# match_tiles is K1's and K2's shared engine; configs 3 and 4 run only K2's.
 PORT_KERNELS = {"batch_match_finalize": "K1", "match_tiles": "K2",
                 "topk_finalize": "K2", "gather_patch_sets_kernel": "K3",
                 "gather_patches_kernel": "K3",
@@ -60,16 +62,18 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import (SMOKE_SCENE, kernel_instance_name, kernel_short_name,
-                            nvidia_smi_line, render_smoke_scene)
+    from chip_smoke import (kernel_instance_name, kernel_short_name, nvidia_smi_line,
+                            render_config4_scene, render_smoke_scene)
     from fastmatch_tpu_torch.core.camera import Pinhole
     from fastmatch_tpu_torch.kernels import _build
-    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
-    from fastmatch_tpu_torch.pipeline.reconstruct import reconstruct
+    from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
+    from fastmatch_tpu_torch.pipeline.reconstruct import detect_features, reconstruct
+    from fastmatch_tpu_torch.pipeline.slam import SlamConfig, slam
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=SMOKE_SCENE["n_frames"])
+    ap.add_argument("--path", choices=("config3", "config4"), default="config3")
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -77,12 +81,25 @@ def main(argv=None) -> int:
         return 2
 
     _build.build_all()
-    scene, views = render_smoke_scene(args.frames)
+    scene, views = (render_smoke_scene if args.path == "config3"
+                    else render_config4_scene)(args.frames)
     cam = Pinhole.from_K(scene.K)
-    reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")  # warm-up
+
+    def run():
+        """The path's Reconstruction (SLAM's detection in its "sift" stage)."""
+        if args.path == "config3":
+            return reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+        cfg = PipelineConfig(map=MapConfig(max_frames=max(64, len(views))))
+        secs = {"sift": 0.0}
+        feats = detect_features(views, cfg, "cuda", secs)
+        rec = slam(feats, cam, cfg, SlamConfig(), device="cuda").rec
+        rec.stage_seconds["sift"] = secs["sift"]
+        return rec
+
+    run()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+    plain = run()
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
@@ -98,7 +115,7 @@ def main(argv=None) -> int:
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rec = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+            rec = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -146,7 +163,7 @@ def main(argv=None) -> int:
     n = rec.n_frames
     gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
     out = dict(
-        device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
+        path=args.path, device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
         frames=n, wall_s=wall_plain, frames_per_s=n / wall_plain,
         stage_seconds=plain.stage_seconds, profiled_wall_s=wall,
         profiled_stage_seconds=rec.stage_seconds, device_busy_s=busy_s,
@@ -158,7 +175,7 @@ def main(argv=None) -> int:
         port_kernels_total=per_kernel, k2_tiles_by_shape=k2_by_shape,
         k2_calls_seen=len(k2_shapes), k2_tile_launches_seen=len(k2_tiles))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_main_path.json"), "w") as fh:
+    with open(os.path.join(ROOT, "chiprun_out", f"profile_{args.path}.json"), "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out), flush=True)
     return 0
