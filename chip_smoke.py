@@ -40,8 +40,10 @@ Phases, in order; any failure exits nonzero before the result line:
    count set to 0 just before and read just after (K3: one launch a
    frame);
 7. BASELINE.json config 4: the 500-keyframe pose graph through
-   ``pgo_solve`` (dense and PCG) and ``pgo_solve_hierarchical``, held to the
-   JAX package's figures on a CPU (``config4_pgo``); then SLAM from 56
+   ``pgo_solve`` (dense and PCG), ``pgo_solve_hierarchical`` and
+   ``sim3_pgo_solve``, held to the JAX package's figures on a CPU, every
+   sum through K4 and each solver's two runs bit-identical
+   (``config4_pgo``); then SLAM from 56
    rendered 640x480 frames of an out-and-back orbit (``config4_slam``:
    SIFT, ``slam`` with loop closure, PGO and global BA), with every
    kernel's launch count set to 0 just before and read just after (K3: one
@@ -1246,6 +1248,11 @@ def _k4_cases(rng):
     ]
 
 
+# K4's bound: K4's error over the largest |sum| against the plain
+# version summed in float64.
+K4_RTOL = 1e-5
+
+
 def check_k4(rng):
     """K4 on ``_k4_cases``: relative error <= 1e-5 against the plain version
     summed in float64 (the fp32 plain version adds by float atomics in no
@@ -1300,7 +1307,7 @@ def check_k4(rng):
                  bound_by=b_by)
         details.append(d)
         log("K4", json.dumps(d))
-        if rel > 1e-5 or not same:
+        if rel > K4_RTOL or not same:
             raise AssertionError(f"K4 {what}: rel err {rel}, bit-identical runs {same}")
         if what == "point D=9":
             entry = dict(max_abs_err=d["max_abs_err"], ms=ms, plain_ms=plain_ms,
@@ -1593,7 +1600,7 @@ def main_path(scene, views):
     for k, c in launches.items():
         if c <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    return launches
+    return launches, stats, rec
 
 
 # The JAX package's figures on the same inputs, on a CPU
@@ -1617,20 +1624,28 @@ def _centers(R, t):
 
 def config4_pgo():
     """The config-4 pose graph at full size (``config4_pose_graph``: 500
-    keyframes, 504 edges) through ``pgo_solve`` (dense, twice, and PCG;
-    ``max_iters=30, kernel="geman", huber_delta_static=0.5``) and
-    ``pgo_solve_hierarchical`` on the card. Gates: cost0 within rtol 1e-4
-    of the JAX package's on the CPU (the same function of the same
-    inputs); the dense final cost within rtol 1e-3 of the JAX package's;
-    the dense ATE within 10% of the JAX package's and below the drifted
-    start's; every solver lowers the cost. Prints ms per solve and LM
-    iterations/s (wall clock, after a warm-up solve), and whether the two
-    dense solves are bit-identical (``index_add_`` sums by float atomics;
-    not gated)."""
+    keyframes, 504 edges) through ``pgo_solve`` (dense, twice, and PCG,
+    twice; ``max_iters=30, kernel="geman", huber_delta_static=0.5``),
+    ``pgo_solve_hierarchical`` and ``sim3_pgo_solve`` (the same graph as
+    similarities, twice) on the card, with K4's launch count set to 0 just
+    before and read just after. Gates: cost0 within rtol 1e-4 of the JAX
+    package's on the CPU (the same function of the same inputs); the
+    dense, PCG and hierarchical final costs within rtol 1e-3 of the JAX
+    package's; the dense ATE within 10% of the JAX package's and below the
+    drifted start's; every solver lowers the cost; every sum goes through
+    K4 (``_key_sum``, keys sorted once a solve), so each solver's two runs
+    are bit-identical (``bit_identical_rerun``). Prints ms per solve, LM
+    iterations/s (wall clock, after a warm-up solve), K4's launches on the
+    path and by solver, and K4's device us a launch (``torch.profiler``) in
+    a dense solve. ``_pgo_sums`` holds K4 against the plain version at each
+    of these sums' shapes (a gate)."""
     import torch
 
+    from fastmatch_tpu_torch.core.lie import Sim3
     from fastmatch_tpu_torch.interop import pose_graph_from_numpy
+    from fastmatch_tpu_torch.kernels import segment_ops as k4
     from fastmatch_tpu_torch.posegraph import pgo_solve, pgo_solve_hierarchical
+    from fastmatch_tpu_torch.posegraph.sim3 import Sim3Graph, sim3_pgo_solve
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
     a = config4_pose_graph()
@@ -1638,6 +1653,10 @@ def config4_pgo():
                                    edge_j=a["edge_j"], Z=(a["ZR"], a["Zt"]),
                                    edge_weight=a["edge_weight"], pose_mask=a["pose_mask"],
                                    fixed=a["fixed"]), device=DEV)
+    ones = lambda n: torch.ones(n, device=g.poses.t.device)  # noqa: E731
+    sg = Sim3Graph(Sim3(g.poses.R, g.poses.t, ones(g.poses.t.shape[0])), g.edge_i, g.edge_j,
+                   Sim3(g.Z.R, g.Z.t, ones(g.edge_i.shape[0])), g.edge_weight, g.pose_mask,
+                   g.fixed)
     gt = _centers(torch.from_numpy(a["R_gt"]), torch.from_numpy(a["t_gt"]))
 
     def ate(T):
@@ -1646,38 +1665,112 @@ def config4_pgo():
     kw = dict(kernel="geman", huber_delta_static=0.5, device=DEV)
     solves = {"dense": lambda: pgo_solve(g, max_iters=30, **kw),
               "pcg": lambda: pgo_solve(g, max_iters=30, solver="pcg", **kw),
-              "hierarchical": lambda: pgo_solve_hierarchical(g, **kw)}
+              "hierarchical": lambda: pgo_solve_hierarchical(g, **kw),
+              "sim3": lambda: sim3_pgo_solve(sg, max_iters=10, **kw)}
     out = dict(graph=CONFIG4_PGO, edges=int(a["edge_i"].shape[0]), ate_start=ate(g.poses),
                jax_cpu=JAX_CONFIG4_PGO)
-    first = solves["dense"]()  # warm-up (cuSOLVER's first call), kept for the rerun check
+    solves["dense"]()  # warm-up (cuSOLVER's first call)
     torch.cuda.synchronize()
+    k4.sorted_segment_sum.launches = 0
     for name, fn in solves.items():
+        before = k4.sorted_segment_sum.launches
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         out[name] = dict(cost0=float(res.cost0), cost=float(res.cost), iters=res.iters,
                          ate=ate(res.poses), ms_per_solve=secs * 1e3,
-                         lm_iters_per_s=res.iters / secs)
-        if name == "dense":
+                         lm_iters_per_s=res.iters / secs,
+                         k4_launches=k4.sorted_segment_sum.launches - before)
+        if name != "hierarchical":
+            again = fn()
             out[name]["bit_identical_rerun"] = bool(
-                torch.equal(res.poses.R, first.poses.R) and torch.equal(res.poses.t, first.poses.t)
-                and torch.equal(res.cost, first.cost))
+                torch.equal(res.poses.R, again.poses.R) and torch.equal(res.poses.t, again.poses.t)
+                and torch.equal(res.cost, again.cost))
+    out["k4_launches_on_the_path"] = k4.sorted_segment_sum.launches
+    # K4's device time in the first two LM iterations of the dense solve
+    # (H's and the gradient's sum each iteration), scaled to a full solve's
+    # launches: profiling a whole solve costs tens of seconds of host time.
+    us, seen = device_us(lambda: pgo_solve(g, max_iters=2, **kw),
+                         {"segsum_short", "segsum_long"}, n=1)
+    out["dense_k4_profile"] = dict(
+        device_us_per_launch=us, profiled_launches=seen,
+        device_us_per_solve=us * out["dense"]["k4_launches"] if seen else None)
+    out["k4_sums"] = _pgo_sums(g, sg)
     log("config4_pgo", json.dumps(out))
     J, d = JAX_CONFIG4_PGO, out["dense"]
     fails = []
     if abs(d["cost0"] - J["cost0"]) > 1e-4 * J["cost0"]:
         fails.append("cost0 differs from the JAX package's beyond rtol 1e-4")
-    if abs(d["cost"] - J["dense"]["cost"]) > 1e-3 * J["dense"]["cost"]:
-        fails.append("dense cost differs from the JAX package's beyond rtol 1e-3")
+    for name in ("dense", "pcg", "hierarchical"):
+        if abs(out[name]["cost"] - J[name]["cost"]) > 1e-3 * J[name]["cost"]:
+            fails.append(f"{name} cost differs from the JAX package's beyond rtol 1e-3")
     if not (abs(d["ate"] - J["dense"]["ate"]) <= 0.1 * J["dense"]["ate"]
             and d["ate"] < out["ate_start"]):
         fails.append("dense ATE not within 10% of the JAX package's, or not below the start's")
     for name in solves:
         if not out[name]["cost"] < out[name]["cost0"]:
             fails.append(f"{name} did not lower the cost")
+        if out[name]["k4_launches"] <= 0:
+            fails.append(f"{name} made no K4 launch")
+        if out[name].get("bit_identical_rerun") is False:
+            fails.append(f"two {name} solves are not bit-identical")
+    for what, k in out["k4_sums"].items():
+        if not (k["rel_err"] <= K4_RTOL and k["bit_identical_runs"]):
+            fails.append(f"K4 at the {what} sum: rel err {k['rel_err']}, "
+                         f"bit-identical runs {k['bit_identical_runs']}")
     if fails:
         raise AssertionError(f"config-4 PGO: {fails}: {out}")
+    return out
+
+
+def _pgo_sums(g, sg):
+    """K4 at each sum that the config-4 solves make, on the 500-keyframe
+    graph's blocks at its start (Geman-McClure weights, delta 0.5): the
+    dense H (the 4E 6x6 blocks into N*N segments of 36), the gradient and
+    the PCG's block diagonal (2E rows into N segments of 6 and of 36; a PCG
+    matvec sums rows of 6 the same way), and Sim(3)'s H (the 4E 7x7 blocks
+    into N*N segments of 49). Each sum is held against the plain version
+    in float64: ``rel_err`` is the max abs error over the largest |sum|
+    (gate K4_RTOL, as in ``check_k4``), and two launches must be
+    bit-identical. Wrapper ms beside the plain version's (``index_add_``)
+    and ``torch.segment_reduce``'s, and the bound (each row, offset and
+    sum moved once)."""
+    import torch
+
+    from fastmatch_tpu_torch.kernels import segment_ops as k4
+    from fastmatch_tpu_torch.posegraph import sim3
+    from fastmatch_tpu_torch.posegraph.pgo import _dense_sums, _edge_normal_blocks
+
+    n = g.poses.R.shape[0]
+    h_sum, node = _dense_sums(g, n)
+    Hii, Hjj, Hij, gi, gj, _, _ = _edge_normal_blocks(g.poses, g, 0.5, "geman")
+    SHii, SHjj, SHij, _, _ = sim3._edge_normal_blocks(sg.poses, sg, 0.5, "geman")
+    cases = {"dense H": (h_sum, [Hii, Hjj, Hij, Hij.transpose(-1, -2)]),
+             "gradient": (node, [gi, gj]),
+             "PCG block diagonal": (node, [Hii, Hjj]),
+             "Sim(3) H": (h_sum, [SHii, SHjj, SHij, SHij.transpose(-1, -2)])}
+    out = {}
+    for what, (ks, parts) in cases.items():
+        vals = torch.cat([p.reshape(p.shape[0], -1) for p in parts])[ks.perm].contiguous()
+        call = lambda: k4.sorted_segment_sum(vals, ks.seg, ks.n, ks.offsets,  # noqa: E731
+                                             ks.max_len)
+        got, again = call(), call()
+        ref = k4.segment_sum_plain(vals.double(), ks.seg, ks.n)
+        err = float((got.double() - ref).abs().max())
+        lengths = k4.segment_lengths(ks.offsets).long()
+        O, D = vals.shape
+        b_ms, b_by = bound(4 * (O * D + ks.n + 1 + ks.n * D), O * D)
+        out[what] = dict(
+            rows=O, cols=D, segments=ks.n, longest=ks.max_len, max_abs_err=err,
+            rel_err=err / max(float(ref.abs().max()), 1e-30),
+            bit_identical_runs=bool(torch.equal(got, again)),
+            ms=cuda_ms(call, batches=5, reps=20),
+            plain_ms=cuda_ms(lambda: k4.segment_sum_plain(vals, ks.seg, ks.n),
+                             batches=5, reps=20),
+            library_ms=cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths),
+                               batches=5, reps=20),
+            bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -1785,6 +1878,391 @@ def config4_slam():
     return launches, stats
 
 
+# -- phase 8: the command-line interface ------------------------------------------
+
+# ``evaluate synth --n-synth 2`` at the default config through the JAX
+# package's CLI (``python -m fastmatch_tpu.cli``) on a CPU.
+JAX_EVALUATE_SYNTH2 = dict(mean_precision=0.976190447807312, mean_recall=0.7641296982765198,
+                           n_correct=164, n_predicted=168, n_gt=215)
+SYNTH_PRECISION_TOL = 0.02
+CLI_COUNT_TOL = 0.05
+
+
+def _cli(argv):
+    """(JSON objects printed, wall seconds) of one in-process CLI call."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fastmatch_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", DEV, *argv])
+    torch.cuda.synchronize()
+    return ([json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")],
+            time.perf_counter() - t0)
+
+
+def cli_phase(scene, views, direct):
+    """The port's CLI on the card. The card's machine has no libjpeg or
+    libpng headers, so the image library (``native/``) does not build
+    there and the CLI's image inputs are tested on the CPU only
+    (tests/test_torch_cli.py); here the CLI reads features and synthetic
+    images, as a user without the library would. ``info`` through
+    ``python -m fastmatch_tpu_torch.cli`` in a child process; then
+    in-process (``cli.main``), each call with K1-K5's launch counts set to 0
+    just before and read just after: ``reconstruct`` of a .npz of the 50
+    smoke frames' features (SIFT on the card from the frames quantized to
+    8 bits, what a PGM decode gives), ``evaluate traj`` of its output
+    against the scene's TUM trajectory, ``match`` of frames 0 and 1's
+    descriptor dumps, ``evaluate synth --n-synth 2`` (SIFT on numpy
+    images); and ``verify_matches(model="fundamental")``, the target of
+    ``match --verify fundamental``, on frames 0 and 1. Gates: 50/50
+    frames, ATE < ATE_GATE, points and observations within 5% of
+    ``direct`` (the main path's ``reconstruct`` on the unquantized frames
+    in this run); K2, K4 and K5 launched by reconstruct, K2 by match, K3
+    (one launch an image) and K2 by evaluate synth; the match verified
+    with inliers; the synth precision within 0.02 of the JAX package's on
+    the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import Matches
+    from fastmatch_tpu_torch.features.sift import detect_and_describe
+    from fastmatch_tpu_torch.kernels import batch_match as k1
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.kernels import patch_gather as k3
+    from fastmatch_tpu_torch.kernels import segment_ops as k4
+    from fastmatch_tpu_torch.matching.matcher import match_pair
+    from fastmatch_tpu_torch.matching.verify import verify_matches
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+
+    out, fails = {}, []
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    info = subprocess.run([sys.executable, "-m", "fastmatch_tpu_torch.cli", "info"],
+                          capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    out["info"] = dict(rc=info.returncode, stdout=info.stdout.strip(),
+                       seconds=time.perf_counter() - t0)
+    if info.returncode != 0 or "nvidia-smi" not in info.stdout:
+        fails.append(f"cli info failed: {info.stderr[-2000:]}")
+    wrappers = {"batch_match": k1.match_batch_fused, "distance_topk": k2.distance_topk,
+                "gather_patch_sets": k3.gather_patch_sets, "gather_patches": k3.gather_patches,
+                "sorted_segment_sum": k4.sorted_segment_sum,
+                "sorted_gather_rows": k4.sorted_gather_rows}
+
+    def call(name, argv):
+        for w in wrappers.values():
+            w.launches = 0
+        reports, secs = _cli(argv)
+        out[name] = dict(report=reports[-1], seconds=secs,
+                         launches={k: w.launches for k, w in wrappers.items()})
+        return reports[-1], out[name]["launches"]
+
+    cfg = PipelineConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        feats = []
+        for img in views:
+            q = np.clip(np.round(img * 255), 0, 255).astype(np.float32) / 255
+            kps, desc = detect_and_describe(q, cfg.sift, device=DEV)
+            feats.append((kps, desc))
+        arrays = {"n_frames": len(views), "image_size": np.array(views[0].shape[::-1])}
+        for i, (kps, desc) in enumerate(feats):
+            arrays.update({f"xy_{i}": kps.xy.cpu().numpy(), f"desc_{i}": desc.data.cpu().numpy(),
+                           f"mask_{i}": desc.mask.cpu().numpy()})
+        npz = os.path.join(tmp, "features.npz")
+        np.savez(npz, **arrays)
+        for i in (0, 1):
+            np.save(os.path.join(tmp, f"desc{i}.npy"), arrays[f"desc_{i}"][arrays[f"mask_{i}"]])
+        gt_path = os.path.join(tmp, "gt_tum.txt")
+        with open(gt_path, "w") as fh:
+            n = len(views)
+            for f, c in enumerate(-np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])):
+                fh.write(f"{f} {c[0]:.7f} {c[1]:.7f} {c[2]:.7f} 0 0 0 1\n")
+        out["features_seconds"] = time.perf_counter() - t0
+        rec_path, metrics = os.path.join(tmp, "rec.npz"), os.path.join(tmp, "metrics.jsonl")
+        rep, rec_launches = call("reconstruct", ["reconstruct", npz, "--out", rec_path,
+                                                 "--metrics", metrics])
+        with open(metrics) as fh:
+            stages = [e for e in map(json.loads, fh) if e["event"] == "stage_seconds"][0]
+        out["reconstruct"].update(
+            stage_seconds={k: v for k, v in stages.items() if k not in ("ts", "event", "step")},
+            direct=dict(n_points=direct["n_points"], n_obs=direct["n_obs"]))
+        traj, _ = call("evaluate_traj", ["evaluate", "traj", "--est", rec_path, "--gt", gt_path])
+        match, match_launches = call("match", ["match", os.path.join(tmp, "desc0.npy"),
+                                               os.path.join(tmp, "desc1.npy")])
+    synth, synth_launches = call("evaluate_synth", ["evaluate", "synth", "--n-synth", "2"])
+    out["evaluate_synth"]["jax_cpu"] = JAX_EVALUATE_SYNTH2
+    (kp0, d0), (kp1, d1) = feats[0], feats[1]
+    m = match_pair(d0, d1, device=DEV)
+    vr = verify_matches(kp0, kp1, Matches(m.idx, m.dist, m.valid), model="fundamental",
+                        generator=torch.Generator(DEV).manual_seed(0), device=DEV)
+    out["verify_fundamental"] = dict(ok=bool(vr.ok), n_inliers=int(vr.n_inliers),
+                                     n_matches=int(m.valid.sum()))
+    log("cli", json.dumps(out))
+    if rep["n_frames"] != len(views):
+        fails.append(f"cli reconstruct: {rep['n_frames']}/{len(views)} frames")
+    if not traj["ate_rmse"] < ATE_GATE:
+        fails.append(f"cli reconstruct ATE {traj['ate_rmse']} >= {ATE_GATE}")
+    for k in ("n_points", "n_obs"):
+        if abs(rep[k] - direct[k]) > CLI_COUNT_TOL * direct[k]:
+            fails.append(f"cli reconstruct {k} {rep[k]} not within 5% of the direct "
+                         f"call's {direct[k]}")
+    for what, launched, need in (("reconstruct", rec_launches, ("distance_topk",
+                                  "sorted_segment_sum", "sorted_gather_rows")),
+                                 ("match", match_launches, ("distance_topk",)),
+                                 ("evaluate synth", synth_launches, ("distance_topk",))):
+        fails += [f"cli {what}: kernel {k} not launched" for k in need if launched[k] <= 0]
+    if synth_launches["gather_patch_sets"] != 4 or synth_launches["gather_patches"]:
+        fails.append(f"cli evaluate synth K3 launches {synth_launches}, want one an image")
+    if not match["n_matches"] > 0:
+        fails.append(f"cli match: {match}")
+    if not (out["verify_fundamental"]["ok"] and out["verify_fundamental"]["n_inliers"] > 0):
+        fails.append(f"verify_matches(fundamental): {out['verify_fundamental']}")
+    prec = synth["aggregate"]["mean_precision"]
+    if not abs(prec - JAX_EVALUATE_SYNTH2["mean_precision"]) <= SYNTH_PRECISION_TOL:
+        fails.append(f"cli evaluate synth precision {prec}, JAX on the CPU "
+                     f"{JAX_EVALUATE_SYNTH2['mean_precision']}")
+    if fails:
+        raise AssertionError(f"cli phase: {fails}")
+    return out
+
+
+# The CPU test's tolerance for the grouped BA against the default path
+# (tests/test_torch_ba_grouped.py, the JAX package's rtol for it).
+GROUPED_BA_RTOL = 1e-3
+
+
+def grouped_ba(rec):
+    """``ba_solve(grouped="auto")`` against the default on the main path's
+    final BA problem (its live observation table, BA's config), with its
+    points and non-gauge camera centres moved by seeded noise of 1% of
+    their spread so that LM iterates. Gates: the grouped and the default
+    assembly of that problem each within GROUPED_ASSEMBLY_RTOL of the
+    float64 sums (``_assemblies``); the final costs within
+    GROUPED_BA_RTOL; two grouped solves bit-identical (the grouped path
+    has no scatter; K4 sums the PCG loop in a fixed order)."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.ba.lm import ba_solve
+    from fastmatch_tpu_torch.pipeline.tracker import compact_obs
+
+    cfg = rec.cfg.ba
+    prob = compact_obs(rec.ba_problem(), int(rec.obs_mask.sum()))
+    rng = np.random.default_rng(0)
+
+    def jitter(x, mask):
+        x = x.cpu().numpy()
+        noise = 0.01 * x[mask].std(0) * rng.standard_normal(x.shape)
+        return torch.from_numpy((x + noise * mask[:, None]).astype(np.float32)).to(DEV)
+
+    moving = (prob.cam_mask & ~prob.fixed_cams).cpu().numpy()
+    prob = prob._replace(points=jitter(prob.points, prob.pt_mask.cpu().numpy()),
+                         poses=prob.poses._replace(t=jitter(prob.poses.t, moving)))
+    huber = cfg.huber_px / float(rec.camera.fx)
+    kw = dict(device=DEV, max_iters=cfg.max_iters, pcg_iters=cfg.pcg_iters,
+              huber_delta_static=huber)
+    out, res = {"assembly": _assemblies(prob, huber)}, {}
+    for name, grouped in (("default", None), ("grouped", "auto"), ("grouped_again", "auto")):
+        t0 = time.perf_counter()
+        res[name] = ba_solve(prob, grouped=grouped, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(cost0=float(res[name].cost0), cost=float(res[name].cost),
+                         iters=res[name].iters, seconds=time.perf_counter() - t0)
+    a, b = res["grouped"], res["grouped_again"]
+    out["grouped_bit_identical"] = bool(torch.equal(a.points, b.points)
+                                        and torch.equal(a.poses.R, b.poses.R)
+                                        and torch.equal(a.cost, b.cost))
+    out["observations"] = int(prob.obs.mask.sum())
+    log("grouped_ba", json.dumps(out))
+    d, g = out["default"]["cost"], out["grouped"]["cost"]
+    errs = out["assembly"]
+    if (abs(d - g) > GROUPED_BA_RTOL * abs(d) or not out["grouped_bit_identical"]
+            or not g < out["grouped"]["cost0"] or errs["cost_grouped"] != errs["cost_default"]
+            or max(errs["grouped_rel_err"].values()) > GROUPED_ASSEMBLY_RTOL
+            or max(errs["default_rel_err"].values()) > GROUPED_ASSEMBLY_RTOL):
+        raise AssertionError(f"grouped BA: {out}")
+    return out
+
+
+# The assemblies' bound: max abs error over the largest |block| against
+# float64 sums of the same per-observation terms. Float32 sums measure
+# 2.7e-7 at 512 observations on the CPU; an observation missing from one
+# of a camera's ~350 moves its Hcc by ~3e-3.
+GROUPED_ASSEMBLY_RTOL = 5e-6
+
+
+def _assemblies(prob, huber):
+    """The grouped (``assemble_grouped``) and the default (``assemble``,
+    K4's sums) assembly of the point-sorted problem, each block set (Hcc,
+    Hpp, gc, gp) held against the plain version's sums of the same
+    per-observation terms in float64: max abs error over the largest
+    |block|; and the two costs."""
+    import torch
+
+    from fastmatch_tpu_torch.ba.lm import sort_obs_by_point
+    from fastmatch_tpu_torch.ba.schur import (assemble, assemble_grouped, group_observations,
+                                              residuals_and_jacobians, segment_keys)
+    from fastmatch_tpu_torch.kernels.segment_ops import segment_sum_plain
+
+    p = sort_obs_by_point(prob.to(DEV))
+    C, P = p.n_cams, p.n_points
+    keys = segment_keys(p.obs, C, P)
+    grouped = group_observations(p.obs, C, P)
+    sys_d, cost_d = assemble(p.poses, p.points, p.obs, C, P, huber, keys)
+    sys_g, cost_g = assemble_grouped(p.poses, p.points, p.obs, grouped, C, P, huber, keys)
+    r, Jc, Jp, w = (x.double() for x in residuals_and_jacobians(p.poses, p.points, p.obs,
+                                                                 huber, keys))
+    wv = w[:, None, None]
+    ci, pi = p.obs.cam_idx.long(), p.obs.pt_idx.long()
+
+    def plain(v, idx, n):
+        return segment_sum_plain(v.reshape(v.shape[0], -1), idx, n).reshape((n,) + v.shape[1:])
+
+    ref = dict(Hcc=plain(torch.einsum("oki,okj->oij", Jc * wv, Jc), ci, C),
+               Hpp=plain(torch.einsum("oki,okj->oij", Jp * wv, Jp), pi, P),
+               gc=-plain(torch.einsum("oki,ok->oi", Jc * wv, r), ci, C),
+               gp=-plain(torch.einsum("oki,ok->oi", Jp * wv, r), pi, P))
+
+    def rel(sys):
+        return {k: float((getattr(sys, k).double() - v).abs().max()
+                         / v.abs().max().clamp(min=1e-30)) for k, v in ref.items()}
+
+    return dict(grouped_rel_err=rel(sys_g), default_rel_err=rel(sys_d),
+                cost_grouped=float(cost_g), cost_default=float(cost_d))
+
+
+FIVE_POINT_TOL_DEG = 0.1
+# The minimal solver's own gates, before RANSAC's 8-point refit (see
+# ``_five_point_samples``). On frames 0-1 of the smoke scene (1.4 degrees
+# apart) a sample's best candidate explains a median 0.957 of the
+# 8-point's inliers, and at least 0.8 of them in 0.889 of the samples (the
+# port on the CPU, seed 1); with one coefficient block of the solver's
+# constraint matrix negated, 0.695 of the samples do, and RANSAC's result
+# after the refit is unchanged. The card's rounding moves single samples'
+# candidates (the root bracketing is sensitive; 29% of the samples differ
+# by more than 0.01 of support from the CPU's on the H100) but not the
+# share: 0.871 on the card against 0.879 on the CPU.
+FIVE_POINT_SUPPORT = 0.95
+FIVE_POINT_GOOD_SHARE = 0.8
+FIVE_POINT_MIN_GOOD = 0.8
+FIVE_POINT_CPU_SLACK = 0.05
+
+
+def five_point(scene, views):
+    """``ransac_essential(solver="5pt")`` beside the 8-point solver on the
+    matches of frames 0 and 1 (SIFT and K2 on the card, normalized by the
+    scene's K; the same n_hyp and threshold as the bootstrap). Gates: the
+    5-point rotation error (degrees, against the scene's relative pose)
+    within FIVE_POINT_TOL_DEG of the 8-point's after RANSAC, and the
+    minimal solver's gates before its refit (``_five_point_samples``)."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.camera import Pinhole, normalize_np
+    from fastmatch_tpu_torch.features.sift import detect_and_describe
+    from fastmatch_tpu_torch.geometry.ransac import ransac_essential
+    from fastmatch_tpu_torch.matching.matcher import match_pair
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    cam = Pinhole.from_K(scene.K)
+    (k0, d0), (k1, d1) = (detect_and_describe(v, cfg.sift, device=DEV) for v in views[:2])
+    m = match_pair(d1, d0, device=DEV)
+    q = torch.nonzero(m.valid)[:, 0]
+    x1 = normalize_np(k1.xy[q].cpu().numpy().astype(np.float64), cam).astype(np.float32)
+    x0 = normalize_np(k0.xy[m.idx[q].long()].cpu().numpy().astype(np.float64),
+                      cam).astype(np.float32)
+    R_gt = scene.R[1] @ scene.R[0].T
+    out = dict(matches=int(q.shape[0]))
+    thr = (cfg.ransac.thr_px / cam.fx) ** 2
+    res = {}
+    for solver in ("8pt", "5pt"):
+        t0 = time.perf_counter()
+        res[solver] = r = ransac_essential(
+            torch.from_numpy(x0), torch.from_numpy(x1), torch.ones(len(x0), dtype=torch.bool),
+            thr=thr, n_hyp=cfg.ransac.n_hyp, solver=solver,
+            generator=torch.Generator(DEV).manual_seed(0), device=DEV)
+        out[solver] = dict(ok=bool(r.ok), n_inliers=int(r.n_inliers),
+                           rot_err_deg=float(_rot_err_deg(r.R.cpu().double().numpy(), R_gt)),
+                           seconds=time.perf_counter() - t0)
+    out["samples"] = _five_point_samples(x0, x1, res["8pt"].inliers, thr, cfg.ransac.n_hyp)
+    log("five_point", json.dumps(out))
+    s = out["samples"]
+    if not (out["5pt"]["ok"] and out["5pt"]["rot_err_deg"]
+            <= out["8pt"]["rot_err_deg"] + FIVE_POINT_TOL_DEG
+            and s["support_5pt"] >= FIVE_POINT_SUPPORT * s["support_8pt"]
+            and s["good_card"] >= FIVE_POINT_MIN_GOOD
+            and s["good_card"] >= s["good_cpu"] - FIVE_POINT_CPU_SLACK):
+        raise AssertionError(f"5-point RANSAC: {out}")
+    return out
+
+
+def _rot_err_deg(R, R_gt):
+    """Angle (degrees) of R R_gt^T, over any leading axes."""
+    import numpy as np
+
+    cos = (np.einsum("...ij,ij->...", R, R_gt) - 1) / 2
+    return np.degrees(np.arccos(np.clip(cos, -1, 1)))
+
+
+def _five_point_samples(x0, x1, inliers, thr, n_hyp):
+    """The 5-point solver on its own, before RANSAC's 8-point refit (which
+    would hide a broken solver on clean matches). ``n_hyp`` seeded samples
+    of 5 and of 8 matches: ``support_5pt`` and ``support_8pt`` are the
+    largest Sampson support of any candidate E (gate: the 5-point's at
+    least FIVE_POINT_SUPPORT of the 8-point's). Then ``n_hyp`` samples of
+    5 of the 8-point RANSAC's inliers through ``five_point_essential`` on
+    the card and on the CPU (the same inputs; both candidate sets scored on
+    the CPU): a sample's best support is the largest share of those
+    inliers that one of its candidates explains. ``good_card`` and
+    ``good_cpu`` are the share of samples whose best support is at least
+    FIVE_POINT_GOOD_SHARE (gates: at least FIVE_POINT_MIN_GOOD, and the
+    card's at least the CPU's less FIVE_POINT_CPU_SLACK), and
+    ``card_cpu_differ`` the share whose best support differs by more than
+    0.01 between the two (printed, not gated: see above)."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.geometry.epipolar import eight_point_essential, sampson_error
+    from fastmatch_tpu_torch.geometry.five_point import five_point_essential
+    from fastmatch_tpu_torch.geometry.ransac import _sample_minimal_sets
+
+    a, b = torch.from_numpy(x0).to(DEV), torch.from_numpy(x1).to(DEV)
+    gen = torch.Generator(DEV).manual_seed(1)
+    live = torch.ones(a.shape[0], dtype=torch.bool, device=DEV)
+
+    def support(Es, ok, a, b):
+        return ((sampson_error(Es, a[None], b[None]) < thr) & ok[:, None]).sum(1)
+
+    idx5, idx8 = (_sample_minimal_sets(gen, live, n_hyp, k) for k in (5, 8))
+    E5, ok5 = five_point_essential(a[idx5], b[idx5])
+    ones = torch.ones(n_hyp, dtype=torch.bool, device=DEV)
+    out = dict(support_5pt=int(support(E5.reshape(-1, 3, 3), ok5.reshape(-1), a, b).max()),
+               support_8pt=int(support(eight_point_essential(a[idx8], b[idx8]), ones,
+                                       a, b).max()))
+    idx = _sample_minimal_sets(gen, inliers.to(DEV), n_hyp, 5)
+    n_in = int(inliers.sum())
+    ac, bc = a.cpu(), b.cpu()
+    best = {}
+    for where, (xa, xb) in (("card", (a[idx], b[idx])), ("cpu", (ac[idx.cpu()], bc[idx.cpu()]))):
+        E, ok = five_point_essential(xa, xb)
+        k = E.shape[-3]
+        sup = support(E.cpu().reshape(-1, 3, 3), ok.cpu().reshape(-1), ac, bc)
+        best[where] = sup.reshape(n_hyp, k).max(1).values.double().numpy() / n_in
+        out[f"good_{where}"] = float((best[where] >= FIVE_POINT_GOOD_SHARE).mean())
+        out[f"median_best_support_{where}"] = float(np.median(best[where]))
+    out["card_cpu_differ"] = float((np.abs(best["card"] - best["cpu"]) > 0.01).mean())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1831,11 +2309,19 @@ def main() -> int:
     phase("small_reference", small_reference)
     scene, views = phase("render", render_smoke_scene)
     launches = phase("config2_images", config2_images, views)
-    launches.update(phase("main_path", main_path, scene, views))
+    main_launches, details["main_path"], rec = phase("main_path", main_path, scene, views)
+    launches.update(main_launches)
     details["config4_pgo"] = phase("config4_pgo", config4_pgo)
     config4_launches, details["config4_slam"] = phase("config4_slam", config4_slam)
+    details["cli"] = phase("cli", cli_phase, scene, views, details["main_path"])
+    details["grouped_ba"] = phase("grouped_ba", grouped_ba, rec)
+    details["five_point"] = phase("five_point", five_point, scene, views)
     details["launches_by_path"] = dict(main_path_and_config2=dict(launches),
-                                       config4_slam=config4_launches)
+                                       config4_slam=config4_launches,
+                                       config4_pgo_k4=details["config4_pgo"][
+                                           "k4_launches_on_the_path"],
+                                       **{f"cli_{k}": details["cli"][k]["launches"] for k in (
+                                           "reconstruct", "match", "evaluate_synth")})
     log("phase_seconds", json.dumps(phase_s))
 
     meta = {

@@ -4,8 +4,10 @@ Port of ``fastmatch_tpu/ba/lm.py``: each iteration solves the
 Schur-reduced camera system with PCG, back-substitutes the point update and
 accepts or rejects with multiplicative damping; the gauge is fixed by
 freezing ``fixed_cams``. The JAX ``lax.while_loop`` is a Python loop here,
-reading one (accept, done) pair back per iteration. The grouped layout and
-the checkify sweep wait.
+reading one (accept, done) pair back per iteration. ``grouped`` switches
+the assembly to the scatter-free grouped layout (``ba/schur.py``), as in
+the JAX package; ``FASTMATCH_CHECKIFY=1`` checks the observation table's
+indices before the solve and its outputs after it (``utils/guards.py``).
 """
 
 from __future__ import annotations
@@ -16,14 +18,18 @@ import torch
 
 from fastmatch_tpu_torch.ba.problem import BAProblem, Observations
 from fastmatch_tpu_torch.ba.schur import (
+    GroupedObs,
     assemble,
+    assemble_grouped,
     back_substitute,
     damped_pp_inverse,
+    group_observations,
     pcg_solve,
     segment_keys,
 )
 from fastmatch_tpu_torch.core.device import resolve_device
 from fastmatch_tpu_torch.core.lie import SE3
+from fastmatch_tpu_torch.utils.guards import maybe_checked
 
 
 class BAResult(NamedTuple):
@@ -37,8 +43,11 @@ class BAResult(NamedTuple):
 
 def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
                  lam0: float = 1e-3, huber_delta_static: float | None = None,
-                 rtol: float = 1e-6) -> BAResult:
-    """Run LM to convergence (or max_iters) on the problem's device."""
+                 rtol: float = 1e-6, grouped: GroupedObs | None = None) -> BAResult:
+    """Run LM to convergence (or max_iters) on the problem's device.
+    ``grouped``: the block-dense grouping of the problem's observation
+    table (``group_observations``); the assembly then gathers and sums over
+    its fixed widths instead of segment sums (the PCG loop is the same)."""
     n_cams, n_points = problem.n_cams, problem.n_points
     obs = problem.obs
     keys = segment_keys(obs, n_cams, n_points)
@@ -46,6 +55,9 @@ def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
     pt_upd = problem.pt_mask.float()
 
     def cost_at(R, t, X):
+        if grouped is not None:
+            return assemble_grouped(SE3(R, t), X, obs, grouped, n_cams, n_points,
+                                    huber_delta_static, keys)
         return assemble(SE3(R, t), X, obs, n_cams, n_points, huber_delta_static, keys)
 
     R, t, X = problem.poses.R, problem.poses.t, problem.points
@@ -88,8 +100,27 @@ def sort_obs_by_point(problem: BAProblem) -> BAProblem:
                                              uv=o.uv[order], mask=o.mask[order]))
 
 
-def ba_solve(problem: BAProblem, device=None, **kwargs) -> BAResult:
+def _index_bounds(problem: BAProblem, *args, **kwargs):
+    """The observation table's index checks for ``utils.guards``."""
+    return [("obs.cam_idx", problem.obs.cam_idx, problem.n_cams),
+            ("obs.pt_idx", problem.obs.pt_idx, problem.n_points)]
+
+
+def ba_solve(problem: BAProblem, grouped: GroupedObs | None | str = None, device=None,
+             **kwargs) -> BAResult:
     """BA entry point on ``device`` (``cuda`` unless ``device="cpu"``);
-    keyword arguments as ``ba_solve_raw``."""
+    keyword arguments as ``ba_solve_raw``. ``grouped="auto"`` builds the
+    block-dense grouping on the host from the point-sorted table; a given
+    ``GroupedObs`` must be that of the point-sorted table."""
     dev = resolve_device(device)
-    return ba_solve_raw(sort_obs_by_point(problem.to(dev)), **kwargs)
+
+    def solve(problem):
+        problem = sort_obs_by_point(problem.to(dev))
+        g = grouped
+        if isinstance(g, str):
+            if g != "auto":
+                raise ValueError(f"grouped must be None, a GroupedObs or 'auto', got {g!r}")
+            g = group_observations(problem.obs, problem.n_cams, problem.n_points)
+        return ba_solve_raw(problem, grouped=g, **kwargs)
+
+    return maybe_checked(solve, _index_bounds)(problem)

@@ -12,14 +12,21 @@ permuted into that order before each sum. ``segment_keys`` also builds each
 key set's segment offsets and longest segment once per solve, which every
 sum passes to the kernel. The point-keyed row gathers go
 through the K5 kernel wrapper (``kernels/segment_ops.sorted_gather_rows``,
-an exact copy); camera-keyed gathers stay plain indexing. The grouped
-layout waits.
+an exact copy); camera-keyed gathers stay plain indexing.
+
+The grouped (block-dense) layout (``GroupedObs`` .. ``assemble_grouped``)
+groups the observation table by point and by camera at fixed widths, so
+each per-point and per-camera reduction is an einsum over a gathered
+(segment, K, ...) tile: gathers and sums over a fixed K axis, no scatter,
+in a fixed order on the card as on the CPU. The JAX package has no Pallas
+kernel on that path, and neither has the port.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fastmatch_tpu_torch.core.lie import hat
@@ -270,3 +277,163 @@ def pcg_solve(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
         p = z + beta * p
         rz = rz_new
     return x
+
+
+# --------------------------------------------------------------------------
+# Scatter-free grouped layout
+# --------------------------------------------------------------------------
+
+
+class GroupedObs(NamedTuple):
+    """The observation table grouped by point and by camera at fixed
+    widths (int64 tensors on the table's device):
+
+    pt_gather: (P, Kp) observation index per (point, slot); dead slots
+               point at the zero pad row O.
+    pt_cam:    (P, Kp) cam_idx of that observation (0 for pads: the padded
+               coupling block is zero).
+    cam_gather: (C, Kc), cam_pt: (C, Kc): the same, keyed by camera.
+    """
+
+    pt_gather: torch.Tensor
+    pt_cam: torch.Tensor
+    cam_gather: torch.Tensor
+    cam_pt: torch.Tensor
+
+
+def _group_one(idx: np.ndarray, mask: np.ndarray, n_segments: int, K=None) -> np.ndarray:
+    """(n_segments, K) table of the live rows of each key, in row order,
+    padded with the pad row ``len(idx)``; K is the longest segment rounded
+    up to a multiple of 8 (at least 8) unless given."""
+    o = idx.shape[0]
+    live = np.where(mask)[0]
+    counts = np.bincount(idx[live], minlength=n_segments)
+    kmax = int(counts.max()) if live.size else 1
+    if K is None:
+        K = max(8, -8 * (-kmax // 8))
+    elif kmax > K:
+        raise ValueError(f"group width {K} < max segment count {kmax}")
+    table = np.full((n_segments, K), o, np.int64)
+    order = np.argsort(idx[live], kind="stable")
+    sorted_obs = live[order]
+    sorted_idx = idx[live][order]
+    starts = np.searchsorted(sorted_idx, np.arange(n_segments))
+    rank = np.arange(sorted_idx.shape[0]) - starts[sorted_idx]
+    table[sorted_idx, rank] = sorted_obs
+    return table
+
+
+def group_observations(obs, n_cams: int, n_points: int, Kp: int | None = None,
+                       Kc: int | None = None) -> GroupedObs:
+    """Host-side (numpy) construction of the grouped layout, once per
+    problem (the observation table is fixed across LM and PCG
+    iterations); the tables land on the observation table's device."""
+    ci = obs.cam_idx.cpu().numpy().astype(np.int64)
+    pi = obs.pt_idx.cpu().numpy().astype(np.int64)
+    mask = obs.mask.cpu().numpy()
+    pt_gather = _group_one(pi, mask, n_points, Kp)
+    cam_gather = _group_one(ci, mask, n_cams, Kc)
+    ci_pad = np.concatenate([ci, np.zeros(1, np.int64)])
+    pi_pad = np.concatenate([pi, np.zeros(1, np.int64)])
+    dev = obs.cam_idx.device
+    return GroupedObs(*(torch.from_numpy(a).to(dev) for a in (
+        pt_gather, ci_pad[pt_gather], cam_gather, pi_pad[cam_gather])))
+
+
+class GroupedSystem(NamedTuple):
+    """Per-LM-iteration precompute for the scatter-free matvec: the
+    coupling blocks gathered into both grouped layouts once an iteration,
+    not once a matvec."""
+
+    Wg_pt: torch.Tensor   # (P, Kp, 6, 3)
+    Wg_cam: torch.Tensor  # (C, Kc, 6, 3)
+    Hcc_l: torch.Tensor   # (C, 6, 6) damped
+    Hpp_inv: torch.Tensor  # (P, 3, 3) damped inverse
+
+
+def _pad_row(x):
+    """x with one zero row appended (the grouped tables' pad row)."""
+    return torch.cat([x, torch.zeros_like(x[:1])])
+
+
+def grouped_system(sys: BlockSystem, grouped: GroupedObs, lam) -> GroupedSystem:
+    Wpad = _pad_row(sys.Wcp)
+    return GroupedSystem(Wg_pt=Wpad[grouped.pt_gather], Wg_cam=Wpad[grouped.cam_gather],
+                         Hcc_l=_damped(sys.Hcc, lam), Hpp_inv=damped_pp_inverse(sys, lam))
+
+
+def schur_matvec_grouped(gs: GroupedSystem, grouped: GroupedObs, x, cam_update_mask):
+    """S @ x, scatter-free; x (C, 6)."""
+    x = x * cam_update_mask[:, None]
+    yp = torch.einsum("pkia,pki->pa", gs.Wg_pt, x[grouped.pt_cam])
+    zp = torch.einsum("pij,pj->pi", gs.Hpp_inv, yp)
+    wc = torch.einsum("ckia,cka->ci", gs.Wg_cam, zp[grouped.cam_pt])
+    Sx = torch.einsum("cij,cj->ci", gs.Hcc_l, x) - wc
+    return Sx * cam_update_mask[:, None]
+
+
+def reduced_rhs_grouped(sys: BlockSystem, gs: GroupedSystem, grouped: GroupedObs,
+                        cam_update_mask):
+    zp = torch.einsum("pij,pj->pi", gs.Hpp_inv, sys.gp)
+    wc = torch.einsum("ckia,cka->ci", gs.Wg_cam, zp[grouped.cam_pt])
+    return (sys.gc - wc) * cam_update_mask[:, None]
+
+
+def back_substitute_grouped(sys: BlockSystem, gs: GroupedSystem, grouped: GroupedObs, dx_c):
+    yp = torch.einsum("pkia,pki->pa", gs.Wg_pt, dx_c[grouped.pt_cam])
+    return torch.einsum("pij,pj->pi", gs.Hpp_inv, sys.gp - yp)
+
+
+def pcg_solve_grouped(sys: BlockSystem, gs: GroupedSystem, grouped: GroupedObs,
+                      cam_update_mask, iters: int = 40):
+    """PCG on the reduced camera system with the scatter-free matvec; equal
+    to ``pcg_solve`` up to summation order."""
+    rhs = reduced_rhs_grouped(sys, gs, grouped, cam_update_mask)
+    Minv = torch.linalg.inv(gs.Hcc_l)
+
+    def precond(r):
+        return torch.einsum("cij,cj->ci", Minv, r) * cam_update_mask[:, None]
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    p = z
+    rz = (r * z).sum()
+    for _ in range(iters):
+        Sp = schur_matvec_grouped(gs, grouped, p, cam_update_mask)
+        pSp = (p * Sp).sum()
+        small = pSp.abs() < 1e-20
+        alpha = torch.where(small, 0.0, rz / torch.where(small, 1.0, pSp))
+        x = x + alpha * p
+        r = r - alpha * Sp
+        z = precond(r)
+        rz_new = (r * z).sum()
+        small = rz.abs() < 1e-20
+        beta = torch.where(small, 0.0, rz_new / torch.where(small, 1.0, rz))
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def assemble_grouped(poses, points, obs, grouped: GroupedObs, n_cams, n_points,
+                     huber_delta=None, keys=None):
+    """Scatter-free assembly: per-observation residuals and Jacobians
+    gathered into the grouped layouts and reduced by einsums over K.
+    Equal to ``assemble`` up to summation order."""
+    if keys is None:
+        keys = segment_keys(obs, n_cams, n_points)
+    res, Jc, Jp, w = residuals_and_jacobians(poses, points, obs, huber_delta, keys)
+    wv = w[:, None, None]
+    Jcw = Jc * wv
+    Jpw = Jp * wv
+    res_pad = _pad_row(res)
+    pg, cg = grouped.pt_gather, grouped.cam_gather
+    Jp_g = _pad_row(Jpw)[pg]
+    Hpp = torch.einsum("pkai,pkaj->pij", Jp_g, _pad_row(Jp)[pg])
+    gp = -torch.einsum("pkai,pka->pi", Jp_g, res_pad[pg])
+    Jc_g = _pad_row(Jcw)[cg]
+    Hcc = torch.einsum("ckai,ckaj->cij", Jc_g, _pad_row(Jc)[cg])
+    gc = -torch.einsum("ckai,cka->ci", Jc_g, res_pad[cg])
+    Wcp = torch.einsum("oki,okj->oij", Jcw, Jp)
+    cost = 0.5 * (w * (res * res).sum(-1)).sum()
+    return BlockSystem(Hcc, Hpp, Wcp, gc, gp, Jc, Jp, w), cost

@@ -16,19 +16,21 @@ import torch
 _INIT = np.random.default_rng(12345).standard_normal((32, 8)).astype(np.float32)
 
 
-def smallest_eigvecs(M: torch.Tensor, iters: int = 6,
+def smallest_eigvecs(M: torch.Tensor, k: int = 1, iters: int = 6,
                      shift_rel: float = 1e-6) -> torch.Tensor:
-    """Approximate eigenvector of the smallest eigenvalue of a batched
-    symmetric PSD matrix M (..., n, n); returns (..., n, 1).
+    """Approximate eigenvectors of the ``k`` smallest eigenvalues of a
+    batched symmetric PSD matrix M (..., n, n); returns (..., n, k),
+    columns orthonormal, ordered by ascending Rayleigh quotient.
 
-    Inverse subspace iteration on a 2-column subspace of (M + eps*I), one
-    Cholesky factor, then a closed-form 2x2 Rayleigh-Ritz rotation. Batches
-    whose Cholesky fails get identity-basis columns, as in the JAX package.
-    The JAX function's ``k`` is always 1 on this path (one null vector per
-    DLT), so the port has no ``k``.
+    Inverse subspace iteration on a (k + 1)-column subspace (2 columns for
+    k = 1) of (M + eps*I), one Cholesky factor, then Rayleigh-Ritz: a
+    closed-form 2x2 rotation for k = 1 (every DLT's null vector), unrolled
+    cyclic Jacobi sweeps as Givens products and an ascending sort for
+    larger subspaces (the 5-point solver's k = 4). Batches whose Cholesky
+    fails get identity-basis columns, as in the JAX package.
     """
     n = M.shape[-1]
-    ks = 2
+    ks = min(max(k + 1, 2), n)
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
     tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)[..., None, None]
     eps = shift_rel * tr / n
@@ -56,17 +58,33 @@ def smallest_eigvecs(M: torch.Tensor, iters: int = 6,
         V = _orthonormalize(V)
 
     H = V.transpose(-2, -1) @ (M @ V)
-    h11 = H[..., 0, 0]
-    h22 = H[..., 1, 1]
-    h12 = H[..., 0, 1]
-    theta = 0.5 * torch.atan2(2.0 * h12, h11 - h22)
-    c, s = torch.cos(theta), torch.sin(theta)
-    e1 = c * c * h11 + 2 * c * s * h12 + s * s * h22
-    e2 = s * s * h11 - 2 * c * s * h12 + c * c * h22
-    v1 = c[..., None] * V[..., :, 0] + s[..., None] * V[..., :, 1]
-    v2 = -s[..., None] * V[..., :, 0] + c[..., None] * V[..., :, 1]
-    first = (e1 <= e2)[..., None]
-    return torch.where(first, v1, v2)[..., :, None]
+    if ks == 2:
+        h11 = H[..., 0, 0]
+        h22 = H[..., 1, 1]
+        h12 = H[..., 0, 1]
+        theta = 0.5 * torch.atan2(2.0 * h12, h11 - h22)
+        c, s = torch.cos(theta), torch.sin(theta)
+        e1 = c * c * h11 + 2 * c * s * h12 + s * s * h22
+        e2 = s * s * h11 - 2 * c * s * h12 + c * c * h22
+        v1 = c[..., None] * V[..., :, 0] + s[..., None] * V[..., :, 1]
+        v2 = -s[..., None] * V[..., :, 0] + c[..., None] * V[..., :, 1]
+        first = (e1 <= e2)[..., None]
+        return torch.stack([torch.where(first, v1, v2),
+                            torch.where(first, v2, v1)], dim=-1)[..., :, :k]
+    # ks >= 3: three cyclic Jacobi sweeps on the small H, then columns in
+    # ascending order of their Rayleigh quotients.
+    Q = torch.eye(ks, dtype=M.dtype, device=M.device).expand(H.shape)
+    pairs = [(p, q) for p in range(ks) for q in range(p + 1, ks)]
+    for _ in range(3):
+        for (p, q) in pairs:
+            th = 0.5 * torch.atan2(2.0 * H[..., p, q], H[..., p, p] - H[..., q, q])
+            G = _givens(ks, p, q, torch.cos(th), torch.sin(th))
+            H = G.transpose(-2, -1) @ H @ G
+            Q = Q @ G
+    Vr = V @ Q
+    ev = torch.diagonal(H, dim1=-2, dim2=-1)
+    order = torch.argsort(ev, dim=-1, stable=True)
+    return torch.take_along_dim(Vr, order[..., None, :], dim=-1)[..., :, :k]
 
 
 def _givens(n, p, q, c, s):

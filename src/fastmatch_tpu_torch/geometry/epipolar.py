@@ -1,5 +1,5 @@
 """Two-view epipolar geometry: 8-point essential, Sampson error,
-decomposition, midpoint depths.
+decomposition, midpoint depths, and E from a pose.
 
 Port of ``fastmatch_tpu/geometry/epipolar.py``; batched over leading axes,
 inputs in normalized image coordinates.
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from fastmatch_tpu_torch.core.batched_linalg import smallest_eigvecs, svd3
+from fastmatch_tpu_torch.core.lie import hat
 
 
 def _homog(x: torch.Tensor) -> torch.Tensor:
@@ -82,3 +83,8 @@ def triangulate_midpoint(R, t, x1, x2):
     d1 = (e1 * c - b * e2) / det
     d2 = (a * e2 - b * e1) / det
     return d1, d2
+
+
+def essential_from_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """E = [t]x R for the relative pose x2 = R x1 + t."""
+    return hat(t) @ R

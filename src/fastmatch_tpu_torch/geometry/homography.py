@@ -274,3 +274,8 @@ def select_two_view_model(x1, x2, mask, thr: float = 1e-4, n_hyp: int = 512,
     idx_h = _sample_minimal_sets(generator, mask, n_hyp, 4)
     return _select_two_view_model_from_samples(idx_e, idx_h, x1, x2, mask, thr,
                                                min_inliers, h_bias)
+
+
+def homography_from_pose(R, t, n, d):
+    """H ~ R + t n^T / d for the plane n . X = d in camera 1."""
+    return R + torch.einsum("...i,...j->...ij", t, n) / d

@@ -1,10 +1,11 @@
-"""Batched-hypothesis RANSAC for the essential matrix (8-point solver).
+"""Batched-hypothesis RANSAC for the essential matrix (8- or 5-point solver).
 
 Port of ``fastmatch_tpu/geometry/ransac.py``. Each estimator is split into
 sampling (``_sample_minimal_sets``, Gumbel top-k from a ``torch.Generator``)
 and a private ``*_from_samples`` function that takes the (K, s) indices, so
 tests can feed the port the indices JAX drew and expect JAX's result.
-``solver="5pt"`` waits.
+``solver="5pt"`` scores the up to 32 candidates of each 5-point sample
+(``geometry/five_point.py``) as one batch.
 """
 
 from __future__ import annotations
@@ -53,9 +54,17 @@ def _sample_minimal_sets(generator: torch.Generator, mask: torch.Tensor,
 
 
 def _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers):
-    Es = eight_point_essential(x1[idx], x2[idx])
-    errs = sampson_error(Es, x1[None], x2[None])
-    inl = (errs < thr) & mask[None, :]
+    """The rest of ``ransac_essential`` from (K, 8) or (K, 5) sample
+    indices: the sample size picks the solver."""
+    if idx.shape[-1] == 5:
+        from fastmatch_tpu_torch.geometry.five_point import five_point_essential
+
+        Es, cand_ok = five_point_essential(x1[idx], x2[idx])
+        Es, cand_ok = Es.reshape(-1, 3, 3), cand_ok.reshape(-1)
+    else:
+        Es = eight_point_essential(x1[idx], x2[idx])
+        cand_ok = torch.ones(Es.shape[0], dtype=torch.bool, device=Es.device)
+    inl = (sampson_error(Es, x1[None], x2[None]) < thr) & mask[None, :] & cand_ok[:, None]
     counts = inl.sum(1)
     best = argmax_first(counts)
     E, inliers = Es[best], inl[best]
@@ -78,14 +87,19 @@ def _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers):
 
 def ransac_essential(x1, x2, mask, thr: float = 1e-4, n_hyp: int = 512,
                      min_inliers: int = 15, generator: torch.Generator | None = None,
-                     device=None) -> RansacResult:
+                     device=None, solver: str = "8pt") -> RansacResult:
     """Relative pose from normalized correspondences x1, x2 (P, 2) with
     validity mask (P,) on ``device`` (``cuda`` unless ``device="cpu"``).
-    ``thr`` is the squared Sampson threshold in normalized units."""
+    ``thr`` is the squared Sampson threshold in normalized units.
+    ``solver``: "8pt" or "5pt" (the minimal sample: n_hyp samples of up to
+    32 candidates each, for low inlier ratios)."""
+    if solver not in ("8pt", "5pt"):
+        raise ValueError(f"unknown solver {solver!r}")
+    sample = 5 if solver == "5pt" else 8
     dev = resolve_device(device)
     x1, x2, mask = x1.to(dev), x2.to(dev), mask.to(dev)
     p_count = mask.shape[0]
-    if p_count < 8:
+    if p_count < sample:
         return RansacResult(
             R=torch.eye(3, device=dev), t=torch.zeros(3, device=dev),
             E=torch.zeros((3, 3), device=dev),
@@ -94,5 +108,5 @@ def ransac_essential(x1, x2, mask, thr: float = 1e-4, n_hyp: int = 512,
             ok=torch.tensor(False, device=dev))
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    idx = _sample_minimal_sets(generator, mask, n_hyp, 8)
+    idx = _sample_minimal_sets(generator, mask, n_hyp, sample)
     return _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers)

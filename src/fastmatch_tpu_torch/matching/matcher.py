@@ -16,11 +16,14 @@ the lower index.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from fastmatch_tpu_torch.core.containers import Descriptors, Matches
 from fastmatch_tpu_torch.core.device import resolve_device
+from fastmatch_tpu_torch.utils.guards import maybe_checked
 
 # Large-but-finite stand-in for +inf, exactly representable in f32 (the JAX
 # package's value: inf - inf would poison the ratio test).
@@ -88,11 +91,15 @@ def match_pair(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.8,
     dev = resolve_device(device)
     desc_a, desc_b = _to(desc_a, dev), _to(desc_b, dev)
     if resolve_backend(backend, dev) == "plain":
-        return match_pair_plain(desc_a, desc_b, ratio=ratio, cross_check=cross_check)
-    from fastmatch_tpu_torch.kernels.distance_topk import match_pair_fused
+        fn = partial(match_pair_plain, ratio=ratio, cross_check=cross_check)
+    else:
+        from fastmatch_tpu_torch.kernels.distance_topk import match_pair_fused
 
-    return match_pair_fused(desc_a, desc_b, ratio=ratio,
-                            cross_check=cross_check, precision=precision)
+        fn = partial(match_pair_fused, ratio=ratio, cross_check=cross_check,
+                     precision=precision)
+    # FASTMATCH_CHECKIFY=1 sweeps the matcher for NaNs and non-finite
+    # outputs (utils/guards.py); free when unset.
+    return maybe_checked(fn)(desc_a, desc_b)
 
 
 def _to(desc: Descriptors, dev) -> Descriptors:

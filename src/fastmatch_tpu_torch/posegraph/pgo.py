@@ -7,18 +7,22 @@ weights, optional unary priors, and the gauge fixed by freezing poses.
 - Residuals and Jacobians per edge by forward-mode autodiff of the
   left-perturbed residual (``torch.func.jacfwd`` under ``torch.func.vmap``,
   as the JAX package vmaps ``jax.jacfwd``).
-- ``solver="dense"``: the (6N, 6N) normal equations assembled by four block
-  scatter-adds an edge (``index_add_`` into an (N*N, 6, 6) view) and solved
-  by damped Cholesky (``torch.linalg.cholesky_ex``, ``cholesky_solve``).
+- ``solver="dense"``: the (6N, 6N) normal equations assembled as four
+  6x6 blocks an edge summed into an (N*N, 6, 6) view of H, and solved by
+  damped Cholesky (``torch.linalg.cholesky_ex``, ``cholesky_solve``).
 - ``solver="pcg"``: the same system matrix-free, block-Jacobi PCG with
-  segment sums by ``index_add_``; its ``pcg_iters`` loop reads nothing back.
+  segment sums over the poses; its ``pcg_iters`` loop reads nothing back.
 - The JAX ``lax.while_loop`` is a host loop that reads back one pair
   (accept, converged) per LM iteration and stops on the same rule.
 
-No Pallas kernel is on this path in the JAX package (its scatter-adds,
-segment sums and Cholesky are plain XLA), so none is here: these are
-PyTorch's own calls. ``index_add_`` on CUDA sums by float atomics, in no
-fixed order, so two solves may differ in the last bits.
+Every sum over the edges goes through the K4 kernel wrapper
+(``kernels/segment_ops.sorted_segment_sum``) in a fixed order, as the JAX
+package's ``segment_sum`` and ``.at[].add`` sum on XLA: the edge topology is
+fixed for a solve, so ``_key_sum`` sorts the keys (block index i*N + j for
+H, pose index for the gradient and the PCG sums) once per solve, and each
+sum gathers its rows into that order and makes one K4 launch. Two solves on
+the card are bit-identical (``index_add_`` would sum by float atomics, in
+no fixed order). On the CPU the wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch
 
 from fastmatch_tpu_torch.core.device import resolve_device
 from fastmatch_tpu_torch.core.lie import SE3
+from fastmatch_tpu_torch.kernels.segment_ops import (segment_lengths, segment_offsets,
+                                                     sorted_segment_sum)
 
 
 class PoseGraph(NamedTuple):
@@ -229,67 +235,113 @@ def _edge_normal_blocks(poses: SE3, g: PoseGraph, huber_delta, kernel: str = "hu
     return Hii, Hjj, Hij, gi, gj, w, r
 
 
-def _build_normal_eqs(poses: SE3, g: PoseGraph, huber_delta, kernel: str = "huber",
-                      prior_delta=None):
-    """(H (6N, 6N), grad (6N,), IRLS cost): four block scatter-adds an edge
-    into an (N*N, 6, 6) view of H."""
-    n = poses.R.shape[0]
-    Hii, Hjj, Hij, gi, gj, w, r = _edge_normal_blocks(poses, g, huber_delta, kernel)
+class _KeySum(NamedTuple):
+    """Row sums by keys that stay fixed for a solve, in a fixed order: the
+    stable permutation that sorts the keys, the sorted int32 keys, their
+    segment offsets and the longest segment (``sorted_segment_sum``'s
+    inputs), and the segment count."""
+
+    perm: torch.Tensor
+    seg: torch.Tensor
+    offsets: torch.Tensor
+    max_len: int
+    n: int
+
+
+def _key_sum(keys, n: int) -> _KeySum:
+    """The _KeySum of the concatenated ``keys`` into ``n`` segments (one
+    readback: the longest segment)."""
+    k = torch.cat([x.reshape(-1).long() for x in keys])
+    perm = torch.argsort(k, stable=True)
+    seg = k[perm].to(torch.int32).contiguous()
+    offsets = segment_offsets(seg, n)
+    return _KeySum(perm, seg, offsets, int(segment_lengths(offsets).max()), n)
+
+
+def _sum_rows(ks: _KeySum, parts) -> torch.Tensor:
+    """(n, ...) sums of the rows of ``parts`` (one tensor per key set given
+    to ``_key_sum``, in that order), through one K4 call."""
+    tail = parts[0].shape[1:]
+    vals = torch.cat([p.reshape(p.shape[0], -1) for p in parts])[ks.perm].contiguous()
+    out = sorted_segment_sum(vals, ks.seg, ks.n, ks.offsets, ks.max_len)
+    return out.reshape((ks.n,) + tuple(tail))
+
+
+def _prior_indices(g):
+    """The prior groups' pose indices, in ``_prior_normal_blocks``' order
+    (none on a ``sim3.Sim3Graph``)."""
+    return [idx.long() for idx in (getattr(g, "prior_idx", None),
+                                   getattr(g, "prior_T_idx", None)) if idx is not None]
+
+
+def _node_sum(g, n: int) -> _KeySum:
+    """Sums into the poses: edge_i's rows, edge_j's, then each prior's."""
+    return _key_sum([g.edge_i, g.edge_j, *_prior_indices(g)], n)
+
+
+def _dense_sums(g, n: int):
+    """(H's block sum into N*N segments, the gradient's node sum)."""
     ei, ej = g.edge_i.long(), g.edge_j.long()
-    H = Hii.new_zeros((n * n, 6, 6))
-    H.index_add_(0, ei * n + ei, Hii)
-    H.index_add_(0, ej * n + ej, Hjj)
-    H.index_add_(0, ei * n + ej, Hij)
-    H.index_add_(0, ej * n + ei, Hij.transpose(-1, -2))
-    grad = gi.new_zeros((n, 6))
-    grad.index_add_(0, ei, gi)
-    grad.index_add_(0, ej, gj)
-    for idx, Hk, gk in _prior_normal_blocks(poses, g, prior_delta, kernel):
-        idx = idx.long()
-        H.index_add_(0, idx * n + idx, Hk)
-        grad.index_add_(0, idx, gk)
+    blocks = [ei * n + ei, ej * n + ej, ei * n + ej, ej * n + ei]
+    blocks += [idx * n + idx for idx in _prior_indices(g)]
+    return _key_sum(blocks, n * n), _node_sum(g, n)
+
+
+def _build_normal_eqs(poses: SE3, g: PoseGraph, huber_delta, kernel: str = "huber",
+                      prior_delta=None, sums=None):
+    """(H (6N, 6N), grad (6N,), IRLS cost): four 6x6 blocks an edge summed
+    into an (N*N, 6, 6) view of H in a fixed order. ``sums``:
+    ``_dense_sums(g, N)``, built here when not given (a solve builds it
+    once)."""
+    n = poses.R.shape[0]
+    h_sum, g_sum = _dense_sums(g, n) if sums is None else sums
+    Hii, Hjj, Hij, gi, gj, w, r = _edge_normal_blocks(poses, g, huber_delta, kernel)
+    priors = _prior_normal_blocks(poses, g, prior_delta, kernel)
+    H = _sum_rows(h_sum, [Hii, Hjj, Hij, Hij.transpose(-1, -2), *(Hk for _, Hk, _ in priors)])
+    grad = _sum_rows(g_sum, [gi, gj, *(gk for _, _, gk in priors)])
     cost = 0.5 * (w * (r * r).sum(-1)).sum()
     H = H.view(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
     return H, grad.reshape(6 * n), cost
 
 
-def _seg(vals, idx, n):
-    return vals.new_zeros((n,) + vals.shape[1:]).index_add_(0, idx, vals)
-
-
 def _pcg_normal_step(g: PoseGraph, poses: SE3, lam, huber_delta, kernel, upd,
-                     pcg_iters: int, prior_delta=None):
+                     pcg_iters: int, prior_delta=None, node_sum=None):
     """One LM linearization solved matrix-free: the damped gauge-masked
     normal equations ``(H + lam diag(H)) dx = -grad`` by block-Jacobi PCG,
-    never forming H. A matvec: two (E, 6) gathers, four batched 6x6 block
-    products, two segment sums. Fixed iteration count with guarded
-    alpha/beta (extra iterations are numeric no-ops); fixed poses ride an
-    identity block with zero gradient, as in the dense path."""
+    never forming H. The blocks are put into the node sum's key order once
+    a step (``node_sum``: ``_node_sum(g, N)``, built here when not given):
+    row r of the sum is ``A[r] x[a[r]] + B[r] x[b[r]]``, so a matvec is two
+    gathers, two batched 6x6 block products and one K4 launch. Fixed iteration count
+    with guarded alpha/beta (extra iterations are numeric no-ops); fixed
+    poses ride an identity block with zero gradient, as in the dense
+    path."""
     n = poses.R.shape[0]
+    node = _node_sum(g, n) if node_sum is None else node_sum
     Hii, Hjj, Hij, gi, gj, _, _ = _edge_normal_blocks(poses, g, huber_delta, kernel)
     ei, ej = g.edge_i.long(), g.edge_j.long()
     updc = upd[:, None]
-    grad = (_seg(gi, ei, n) + _seg(gj, ej, n)) * updc
-    D = _seg(Hii, ei, n) + _seg(Hjj, ej, n)
     prior_groups = [(idx.long(), Hk, gk)
                     for idx, Hk, gk in _prior_normal_blocks(poses, g, prior_delta, kernel)]
-    for idx, Hk, gk in prior_groups:
-        D = D + _seg(Hk, idx, n)
-        grad = grad + _seg(gk, idx, n) * updc
+    grad = _sum_rows(node, [gi, gj, *(gk for _, _, gk in prior_groups)]) * updc
+    D = _sum_rows(node, [Hii, Hjj, *(Hk for _, Hk, _ in prior_groups)])
     d = torch.diagonal(D, dim1=-2, dim2=-1)
     damp = lam * d + 1e-10
     eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
     Dd = torch.where(upd[:, None, None] > 0, D + torch.diag_embed(damp), eye6)
     Minv = torch.linalg.inv(Dd)
+    # Edge i's row: Hii x_i + Hij x_j; edge j's: Hij^T x_i + Hjj x_j; a
+    # prior's: Hk x_k (its second block is zero).
+    A = torch.cat([Hii, Hij.transpose(-1, -2), *(Hk for _, Hk, _ in prior_groups)])
+    B = torch.cat([Hij, Hjj, *(torch.zeros_like(Hk) for _, Hk, _ in prior_groups)])
+    a = torch.cat([ei, ei, *(idx for idx, _, _ in prior_groups)])
+    b = torch.cat([ej, ej, *(idx for idx, _, _ in prior_groups)])
+    A, B, a, b = A[node.perm], B[node.perm], a[node.perm], b[node.perm]
 
     def matvec(x):
         xm = x * updc
-        xi, xj = xm[ei], xm[ej]
-        yi = torch.einsum("eij,ej->ei", Hii, xi) + torch.einsum("eij,ej->ei", Hij, xj)
-        yj = torch.einsum("eji,ej->ei", Hij, xi) + torch.einsum("eij,ej->ei", Hjj, xj)
-        y = _seg(yi, ei, n) + _seg(yj, ej, n) + damp * xm
-        for idx, Hk, _gk in prior_groups:
-            y = y + _seg(torch.einsum("eij,ej->ei", Hk, xm[idx]), idx, n)
+        rows = (torch.einsum("rij,rj->ri", A, xm[a])
+                + torch.einsum("rij,rj->ri", B, xm[b])).contiguous()
+        y = sorted_segment_sum(rows, node.seg, n, node.offsets, node.max_len) + damp * xm
         return y * updc + (1.0 - updc) * x
 
     def precond(r):
@@ -345,8 +397,11 @@ def pgo_solve(g: PoseGraph, max_iters: int = 30, lam0: float = 1e-4,
     def cost_of(T: SE3):
         return _graph_cost(T, g, huber_delta_static, kernel, prior_delta)
 
+    # The edge topology is fixed for the solve: sort its keys once.
+    sums = _dense_sums(g, n) if solver == "dense" else _node_sum(g, n)
+
     def dense_step(T: SE3, lam):
-        H, grad, _ = _build_normal_eqs(T, g, huber_delta_static, kernel, prior_delta)
+        H, grad, _ = _build_normal_eqs(T, g, huber_delta_static, kernel, prior_delta, sums)
         H = H * upd6[:, None] * upd6[None, :] + torch.diag(1.0 - upd6)
         grad = grad * upd6
         Hd = H + torch.diag(lam * torch.diagonal(H) + 1e-10)
@@ -364,7 +419,7 @@ def pgo_solve(g: PoseGraph, max_iters: int = 30, lam0: float = 1e-4,
             dx = dense_step(T, lam)
         else:
             dx = _pcg_normal_step(g, T, lam, huber_delta_static, kernel, upd, pcg_iters,
-                                  prior_delta)
+                                  prior_delta, sums)
         bad = torch.isnan(dx).any()
         dx = torch.where(bad, torch.zeros_like(dx), dx) * upd[:, None]
         new = SE3.exp(dx).compose(T)

@@ -6,7 +6,8 @@ an SE(3) correction cannot represent; this solver optimizes 7-dof
 similarity poses (tangents ``[rho, omega, sigma]``, ``core/lie.Sim3``) with
 the dense path of ``posegraph/pgo.py`` lifted to 7 dimensions: per-edge
 residual log(Z^-1 S_i S_j^-1) with Jacobians by ``torch.func.jacfwd`` under
-``vmap``, dense (7N, 7N) normal equations by block scatter-adds, damped
+``vmap``, dense (7N, 7N) normal equations summed in a fixed order through
+the K4 kernel wrapper (``pgo._dense_sums``, keys sorted once a solve), damped
 Cholesky, LM accept/reject on the host with one readback an iteration, and
 the robust kernels of ``pgo.py``. At least one pose must be ``fixed``.
 
@@ -22,7 +23,8 @@ import torch
 
 from fastmatch_tpu_torch.core.device import resolve_device
 from fastmatch_tpu_torch.core.lie import SE3, Sim3
-from fastmatch_tpu_torch.posegraph.pgo import _robust_cost, _robust_weight
+from fastmatch_tpu_torch.posegraph.pgo import (_dense_sums, _robust_cost, _robust_weight,
+                                                _sum_rows)
 
 
 class Sim3Graph(NamedTuple):
@@ -96,8 +98,9 @@ def _graph_cost(poses: Sim3, g: Sim3Graph, delta, kernel: str):
     return (g.edge_weight * _robust_cost(rn, delta, kernel)).sum()
 
 
-def _build_normal_eqs(poses: Sim3, g: Sim3Graph, delta, kernel: str):
-    n = poses.R.shape[0]
+def _edge_normal_blocks(poses: Sim3, g: Sim3Graph, delta, kernel: str):
+    """Per-edge 7x7 normal-equation blocks (IRLS-weighted): (Hii, Hjj, Hij,
+    gi, gj)."""
     r, Ji, Jj = _edge_jacobians(poses, g)
     w = g.edge_weight
     if delta is not None:
@@ -108,15 +111,17 @@ def _build_normal_eqs(poses: Sim3, g: Sim3Graph, delta, kernel: str):
     Hij = torch.einsum("eki,ekj->eij", Ji * wv, Jj)
     gi = torch.einsum("eki,ek->ei", Ji * wv, r)
     gj = torch.einsum("eki,ek->ei", Jj * wv, r)
-    ei, ej = g.edge_i.long(), g.edge_j.long()
-    H = Hii.new_zeros((n * n, 7, 7))
-    H.index_add_(0, ei * n + ei, Hii)
-    H.index_add_(0, ej * n + ej, Hjj)
-    H.index_add_(0, ei * n + ej, Hij)
-    H.index_add_(0, ej * n + ei, Hij.transpose(-1, -2))
-    grad = gi.new_zeros((n, 7))
-    grad.index_add_(0, ei, gi)
-    grad.index_add_(0, ej, gj)
+    return Hii, Hjj, Hij, gi, gj
+
+
+def _build_normal_eqs(poses: Sim3, g: Sim3Graph, delta, kernel: str, sums=None):
+    """(H (7N, 7N), grad (7N,)) summed in a fixed order; ``sums``:
+    ``pgo._dense_sums(g, N)``, built here when not given."""
+    n = poses.R.shape[0]
+    Hii, Hjj, Hij, gi, gj = _edge_normal_blocks(poses, g, delta, kernel)
+    h_sum, g_sum = _dense_sums(g, n) if sums is None else sums
+    H = _sum_rows(h_sum, [Hii, Hjj, Hij, Hij.transpose(-1, -2)])
+    grad = _sum_rows(g_sum, [gi, gj])
     return H.view(n, n, 7, 7).permute(0, 2, 1, 3).reshape(7 * n, 7 * n), grad.reshape(7 * n)
 
 
@@ -145,8 +150,9 @@ def sim3_pgo_solve(g: Sim3Graph, max_iters: int = 30, lam0: float = 1e-4,
     cost0 = cost = cost_of(S)
     lam = torch.tensor(lam0, dtype=torch.float32, device=S.t.device)
     it, done = 0, False
+    sums = _dense_sums(g, n)  # the edge topology is fixed for the solve
     while it < max_iters and not done:
-        H, grad = _build_normal_eqs(S, g, huber_delta_static, kernel)
+        H, grad = _build_normal_eqs(S, g, huber_delta_static, kernel, sums)
         H = H * upd7[:, None] * upd7[None, :] + torch.diag(1.0 - upd7)
         grad = grad * upd7
         L, info = torch.linalg.cholesky_ex(H + torch.diag(lam * torch.diagonal(H) + 1e-10))

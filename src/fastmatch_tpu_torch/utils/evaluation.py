@@ -1,12 +1,18 @@
-"""Trajectory ATE after sim(3) (Umeyama) alignment, and matcher agreement.
+"""Evaluation: trajectory ATE and RPE after sim(3) (Umeyama) alignment,
+match precision/recall against a ground-truth homography, and matcher
+agreement.
 
-Port of ``fastmatch_tpu/utils/evaluation.py``'s ``align_umeyama``,
-``ate_rmse`` and ``match_agreement``: monocular reconstructions are defined
-up to a similarity, so camera centres are aligned to ground truth before
-the RMSE. The match precision/recall harness waits.
+Port of ``fastmatch_tpu/utils/evaluation.py``: monocular reconstructions
+are defined up to a similarity, so camera centres are aligned to ground
+truth before the RMSE. A predicted match a_i -> b_j is correct when the
+ground-truth homography carries a_i to within ``tol`` pixels of b_j;
+recall counts the A-keypoints that have a ground-truth counterpart among
+the detected B-keypoints.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +43,65 @@ def ate_rmse(est_centers, gt_centers) -> torch.Tensor:
     s, R, t = align_umeyama(est, gt)
     aligned = s * est @ R.T + t
     return torch.sqrt(((aligned - gt) ** 2).sum(-1).mean())
+
+
+def rpe_trans(est_centers, gt_centers, delta: int = 1):
+    """Translational relative-pose error at frame distance ``delta`` after
+    sim(3) alignment: e_i = |(c[i+d] - c[i]) - (g[i+d] - g[i])|; returns
+    (rmse, median), the median of an even count the mean of its middle
+    two, as ``jnp.median``. Raises ValueError unless 0 < delta < N."""
+    est = torch.as_tensor(est_centers, dtype=torch.float32)
+    gt = torch.as_tensor(gt_centers, dtype=torch.float32, device=est.device)
+    n = int(est.shape[0])
+    if not 0 < delta < n:
+        raise ValueError(f"rpe delta must be in [1, {n - 1}] for a {n}-frame "
+                         f"trajectory; got {delta}")
+    s, R, t = align_umeyama(est, gt)
+    a = s * est @ R.T + t
+    err = torch.linalg.vector_norm((a[delta:] - a[:-delta]) - (gt[delta:] - gt[:-delta]),
+                                   dim=-1)
+    return torch.sqrt((err ** 2).mean()), torch.quantile(err, 0.5)
+
+
+class MatchEval(NamedTuple):
+    """Per-pair match quality against a ground-truth homography: precision
+    (correct / predicted) and recall (correct / A-keypoints with a
+    ground-truth counterpart), NaN where the denominator is 0, and the
+    int32 counts."""
+
+    precision: torch.Tensor
+    recall: torch.Tensor
+    n_correct: torch.Tensor
+    n_predicted: torch.Tensor
+    n_gt: torch.Tensor
+
+
+def project_homography(H: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Apply a 3x3 homography to (N, 2) pixel coordinates."""
+    p = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1) @ H.T
+    w = p[..., 2:3]
+    return p[..., :2] / torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
+
+
+def match_precision_recall(xy_a, mask_a, xy_b, mask_b, match_idx, match_valid, H_ab,
+                           tol: float = 3.0) -> MatchEval:
+    """Score the matches of A against B (``Matches`` fields) with the
+    ground-truth homography A -> B: a match is correct iff
+    |H_ab xy_a[i] - xy_b[idx[i]]| <= tol px; an A-keypoint has ground truth
+    iff some live B-keypoint lies within tol of its projection."""
+    proj = project_homography(H_ab, xy_a)
+    err = torch.linalg.vector_norm(proj - xy_b[match_idx.long()], dim=-1)
+    correct = match_valid & mask_a & (err <= tol)
+    d2 = ((proj[:, None, :] - xy_b[None, :, :]) ** 2).sum(-1)
+    d2 = torch.where(mask_b[None, :], d2, torch.full_like(d2, float("inf")))
+    has_gt = mask_a & (d2.min(dim=1).values <= tol * tol)
+    n_correct = correct.sum().to(torch.int32)
+    n_pred = (match_valid & mask_a).sum().to(torch.int32)
+    n_gt = has_gt.sum().to(torch.int32)
+    nan = torch.tensor(float("nan"), device=proj.device)
+    precision = torch.where(n_pred > 0, n_correct / torch.clamp(n_pred, min=1), nan)
+    recall = torch.where(n_gt > 0, n_correct / torch.clamp(n_gt, min=1), nan)
+    return MatchEval(precision, recall, n_correct, n_pred, n_gt)
 
 
 def match_agreement(idx_a, valid_a, idx_b, valid_b, mask=None) -> torch.Tensor:
