@@ -63,7 +63,7 @@ def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
     R, t, X = problem.poses.R, problem.poses.t, problem.points
     sys, cost0 = cost_at(R, t, X)
     cost = cost0
-    lam = torch.tensor(lam0, dtype=torch.float32, device=X.device)
+    lam = torch.full((), lam0, dtype=torch.float32, device=X.device)
     it = accepted = 0
     done = False
     while it < max_iters and not done:

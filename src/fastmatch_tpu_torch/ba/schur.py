@@ -253,7 +253,8 @@ def pcg_solve(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
     if Hpp_inv is None:
         Hpp_inv = damped_pp_inverse(sys, lam)
     rhs = reduced_rhs(sys, obs, lam, n_points, cam_update_mask, keys, Hpp_inv)
-    Minv = torch.linalg.inv(_damped(sys.Hcc, lam))
+    # inv_ex: no singularity check, which would read back (the blocks are damped).
+    Minv = torch.linalg.inv_ex(_damped(sys.Hcc, lam))[0]
 
     def precond(r):
         return torch.einsum("cij,cj->ci", Minv, r) * cam_update_mask[:, None]
@@ -389,7 +390,7 @@ def pcg_solve_grouped(sys: BlockSystem, gs: GroupedSystem, grouped: GroupedObs,
     """PCG on the reduced camera system with the scatter-free matvec; equal
     to ``pcg_solve`` up to summation order."""
     rhs = reduced_rhs_grouped(sys, gs, grouped, cam_update_mask)
-    Minv = torch.linalg.inv(gs.Hcc_l)
+    Minv = torch.linalg.inv_ex(gs.Hcc_l)[0]
 
     def precond(r):
         return torch.einsum("cij,cj->ci", Minv, r) * cam_update_mask[:, None]

@@ -11,7 +11,7 @@ ported, with the JAX package's argument names and JSON output:
   reconstruct incremental SfM over an image directory or .npz features
   evaluate    match precision/recall ('synth' pairs or an Oxford-VGG
               directory) or trajectory ATE/RPE ('traj --est --gt')
-  slam        SLAM with loop closure (the host engine)
+  slam        SLAM with loop closure (--engine auto|device|host|scan|chunked)
 
 Everything runs on the card unless ``--device cpu`` is given. An option or
 subcommand whose module is not ported yet raises ``NotImplementedError``
@@ -300,27 +300,47 @@ def cmd_reconstruct(args):
 
 
 def cmd_slam(args):
-    from fastmatch_tpu_torch.pipeline.slam import SlamConfig, slam
+    from fastmatch_tpu_torch.pipeline.slam import SlamConfig
 
     if args.mesh:
         raise not_ported("slam --mesh (dist/pipeline.py)", 9)
     if args.checkpoint_interval or args.resume or args.no_overlap:
         raise not_ported("--checkpoint-interval/--resume/--no-overlap (with --mesh)", 9)
-    if args.engine in ("device", "scan", "chunked"):
-        raise not_ported(f"slam --engine {args.engine} (pipeline/slam_device.py, "
-                         "slam_scan.py)", 3)
     if args.plot:
         raise not_ported("slam --plot (utils/viz.py)", 4)
     _refuse_unported(args)
     cfg = _load_config(args)
     scfg = SlamConfig(window=args.window, loop_gap=args.loop_gap,
                       loop_min_votes=args.loop_min_votes)
+    dev = _device(args)
+    # "auto", as in the JAX package: the device engine on the card, the
+    # host engine on the CPU.
+    engine = args.engine
+    if engine == "auto":
+        engine = "device" if dev.type == "cuda" else "host"
     secs = {}
     feats, cam = _load_features(args, cfg, secs)
     metrics = _metrics(args)
-    # "auto" is the host engine while the device engines are unported (the
-    # JAX package picks its device engine off the CPU).
-    out = slam(feats, cam, cfg, scfg, metrics=metrics, device=_device(args))
+    kw = dict(metrics=metrics, device=dev)
+    if engine == "device":
+        from fastmatch_tpu_torch.pipeline.slam_device import slam_device
+
+        out = slam_device(feats, cam, cfg, scfg, **kw)
+    elif engine == "scan":
+        # Offline mapping: no per-frame decision but the BA cadence, no
+        # in-loop closure (pipeline/slam_scan.py).
+        from fastmatch_tpu_torch.pipeline.slam_scan import slam_scan
+
+        out = slam_scan(feats, cam, cfg, scfg, **kw)
+    elif engine == "chunked":
+        # Near-online: scan slices with loop closure between them.
+        from fastmatch_tpu_torch.pipeline.slam_scan import slam_chunked
+
+        out = slam_chunked(feats, cam, cfg, scfg, chunk=args.chunk, **kw)
+    else:
+        from fastmatch_tpu_torch.pipeline.slam import slam
+
+        out = slam(feats, cam, cfg, scfg, **kw)
     rec = out.rec
     if metrics:
         metrics.log("stage_seconds", **{**rec.stage_seconds, **secs})
@@ -331,7 +351,7 @@ def cmd_slam(args):
         _write_tum(args.trajectory, rec)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
                       "loop_closures": len(out.loop_edges), "pgo_runs": out.pgo_runs,
-                      "engine": "host", "out": args.out}))
+                      "engine": engine, "out": args.out}))
 
 
 def _quat_xyzw(R):
@@ -467,9 +487,12 @@ def main(argv=None):
     sp.add_argument("--loop-gap", type=int, default=12)
     sp.add_argument("--loop-min-votes", type=int, default=25)
     sp.add_argument("--engine", choices=("auto", "device", "host", "scan", "chunked"),
-                    default="auto", help="host (and auto): the host engine; device, scan "
-                    "and chunked: not yet ported")
-    sp.add_argument("--chunk", type=int, default=16)
+                    default="auto", help="auto = device on the card, host on the CPU; "
+                    "device = one track_step a frame with online loop closure; scan = "
+                    "offline, no in-loop closure; chunked = scan slices with loop closure "
+                    "between them")
+    sp.add_argument("--chunk", type=int, default=16,
+                    help="with --engine chunked: frames per slice")
     sp.add_argument("--mesh", help="multi-card pipeline: not yet ported")
     sp.add_argument("--no-overlap", action="store_true")
     sp.add_argument("--checkpoint-interval", type=int, default=0)

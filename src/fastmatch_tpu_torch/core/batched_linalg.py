@@ -15,6 +15,20 @@ import torch
 # slab: same seed, same values).
 _INIT = np.random.default_rng(12345).standard_normal((32, 8)).astype(np.float32)
 
+_CONSTS: dict = {}
+
+
+def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``a`` on ``like``'s device in its dtype, copied there once: a copy
+    from host memory on every call would synchronize with the card. The
+    cached tensors are only read."""
+    a = np.ascontiguousarray(a)
+    key = (a.tobytes(), a.shape, like.dtype, like.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    return t
+
 
 def smallest_eigvecs(M: torch.Tensor, k: int = 1, iters: int = 6,
                      shift_rel: float = 1e-6) -> torch.Tensor:
@@ -38,8 +52,7 @@ def smallest_eigvecs(M: torch.Tensor, k: int = 1, iters: int = 6,
     bad = (info != 0) | ~torch.isfinite(L).all(-1).all(-1)
     L = torch.where(bad[..., None, None], eye, L)
 
-    V = torch.as_tensor(_INIT[:n, :ks], dtype=M.dtype, device=M.device)
-    V = V.expand(M.shape[:-2] + (n, ks))
+    V = _const(_INIT[:n, :ks], M).expand(M.shape[:-2] + (n, ks))
 
     def _orthonormalize(V):
         cols = []
@@ -95,12 +108,9 @@ def _givens(n, p, q, c, s):
     ep[p] = 1.0
     eq[q] = 1.0
 
-    def const(a):
-        return torch.as_tensor(a, dtype=c.dtype, device=c.device)
-
-    Epp, Eqq = const(np.outer(ep, ep)), const(np.outer(eq, eq))
-    Epq, Eqp = const(np.outer(ep, eq)), const(np.outer(eq, ep))
-    eye = const(np.eye(n, dtype=np.float32))
+    Epp, Eqq = _const(np.outer(ep, ep), c), _const(np.outer(eq, eq), c)
+    Epq, Eqp = _const(np.outer(ep, eq), c), _const(np.outer(eq, ep), c)
+    eye = _const(np.eye(n, dtype=np.float32), c)
     c1 = (c - 1.0)[..., None, None]
     sb = s[..., None, None]
     return eye + c1 * (Epp + Eqq) - sb * Epq + sb * Eqp
@@ -108,8 +118,8 @@ def _givens(n, p, q, c, s):
 
 def _orth_complement(u: torch.Tensor) -> torch.Tensor:
     """A unit vector orthogonal to unit u (..., 3), branchless."""
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=u.dtype, device=u.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=u.dtype, device=u.device)
+    ex = _const(np.array([1.0, 0.0, 0.0], np.float32), u)
+    ey = _const(np.array([0.0, 1.0, 0.0], np.float32), u)
     a = torch.linalg.cross(u, ex * torch.ones_like(u), dim=-1)
     b = torch.linalg.cross(u, ey * torch.ones_like(u), dim=-1)
     na = torch.linalg.vector_norm(a, dim=-1, keepdim=True)
@@ -143,7 +153,7 @@ def svd3(M: torch.Tensor, sweeps: int = 4):
 
     eps = 1e-12 + 1e-6 * S[..., 0:1]
     u0 = B[..., :, 0] / torch.clamp(S[..., 0:1], min=1e-20)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=M.dtype, device=M.device)
+    ex = _const(np.array([1.0, 0.0, 0.0], np.float32), M)
     u0 = torch.where(S[..., 0:1] > 1e-20, u0, ex.expand(u0.shape))
     u1 = B[..., :, 1] / torch.clamp(S[..., 1:2], min=1e-20)
     u1 = torch.where(S[..., 1:2] > eps, u1, _orth_complement(u0))

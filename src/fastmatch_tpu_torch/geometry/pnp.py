@@ -16,7 +16,7 @@ from fastmatch_tpu_torch.core.batched_linalg import (
 from fastmatch_tpu_torch.core.device import resolve_device
 from fastmatch_tpu_torch.core.lie import SE3, hat
 from fastmatch_tpu_torch.geometry.homography import dlt_homography
-from fastmatch_tpu_torch.geometry.ransac import _sample_minimal_sets, argmax_first
+from fastmatch_tpu_torch.geometry.ransac import _sample_minimal_sets, argmax_first, take
 
 
 def _project(p):
@@ -101,7 +101,8 @@ def refine_pose_gn(pose: SE3, X: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         wv = w[:, None, None]
         H = torch.einsum("pki,pkj->ij", J * wv, J) + damping * eye6
         g = torch.einsum("pki,pk->i", J * wv, res)
-        delta = -torch.linalg.solve(H, g)
+        # solve_ex: no singularity check, which would read back (H is damped).
+        delta = -torch.linalg.solve_ex(H, g)[0]
         R, t = SE3.exp(delta).compose(SE3(R, t))
     return SE3(R, t)
 
@@ -126,8 +127,8 @@ def _ransac_pnp_from_samples(idx6, idx4, X, x, mask, thr, min_inliers):
 
     inl = score(Rs, ts)
     best = argmax_first(inl.sum(1))
-    pose = SE3(Rs[best], ts[best])
-    inliers = inl[best]
+    pose = SE3(take(Rs, best), take(ts, best))
+    inliers = take(inl, best)
     for _ in range(2):
         cand = refine_pose_gn(pose, X, x, inliers.float(), iters=8)
         cand_inl = score(cand.R, cand.t)

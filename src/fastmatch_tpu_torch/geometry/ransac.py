@@ -32,6 +32,12 @@ class RansacResult(NamedTuple):
     ok: torch.Tensor         # scalar bool
 
 
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-dim index tensor without reading it back (indexing
+    with a 0-dim tensor converts it to a Python int)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def argmax_first(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """argmax with the lowest index among equal maxima (jnp.argmax's rule)."""
     mx = x.max(dim=dim, keepdim=True).values
@@ -67,7 +73,7 @@ def _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers):
     inl = (sampson_error(Es, x1[None], x2[None]) < thr) & mask[None, :] & cand_ok[:, None]
     counts = inl.sum(1)
     best = argmax_first(counts)
-    E, inliers = Es[best], inl[best]
+    E, inliers = take(Es, best), take(inl, best)
     # Iterated weighted 8-point refit, kept only when support does not drop.
     for _ in range(3):
         E1 = eight_point_essential(x1, x2, w=inliers.float())
@@ -80,9 +86,9 @@ def _ransac_essential_from_samples(idx, x1, x2, mask, thr, min_inliers):
     votes = ((d1 > 0) & (d2 > 0) & inliers[None, :]).sum(1)
     b = argmax_first(votes)
     n_in = inliers.sum()
-    return RansacResult(R=Rs[b], t=ts[b], E=E, inliers=inliers, n_inliers=n_in,
+    return RansacResult(R=take(Rs, b), t=take(ts, b), E=E, inliers=inliers, n_inliers=n_in,
                         ok=(n_in >= min_inliers)
-                        & (votes[b] > 0.6 * torch.clamp(n_in, min=1)))
+                        & (take(votes, b) > 0.6 * torch.clamp(n_in, min=1)))
 
 
 def ransac_essential(x1, x2, mask, thr: float = 1e-4, n_hyp: int = 512,

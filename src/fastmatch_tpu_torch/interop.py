@@ -4,7 +4,7 @@ The port never imports the JAX package; these helpers take the plain numpy
 arrays (or any object with the same field names) that the JAX side hands
 out and build the port's containers, so both packages can run on identical
 inputs: descriptors, a bundle-adjustment problem, a reconstruction's map
-state and the configuration dataclasses.
+state, the device tracker's state and the configuration dataclasses.
 
 Every constructor here takes ``device=None`` and resolves it as every
 entry point of the port does (``core.device.resolve_device``): the card
@@ -28,6 +28,7 @@ from fastmatch_tpu_torch.features.sift import SIFTConfig
 from fastmatch_tpu_torch.pipeline import config as _config
 from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
 from fastmatch_tpu_torch.pipeline.slam import SlamResult
+from fastmatch_tpu_torch.pipeline.tracker import TrackerStatic, TrackState
 from fastmatch_tpu_torch.posegraph.pgo import PoseGraph
 from fastmatch_tpu_torch.posegraph.sim3 import Sim3Graph
 
@@ -36,7 +37,8 @@ __all__ = [
     "binary_descriptors_from_arrays", "ba_problem_from_numpy",
     "config_from", "reconstruction_from_numpy",
     "reconstruction_to_numpy", "pose_graph_from_numpy", "sim3_graph_from_numpy",
-    "slam_state_from_numpy", "slam_state_to_numpy",
+    "slam_state_from_numpy", "slam_state_to_numpy", "track_state_from_numpy",
+    "track_state_to_numpy", "tracker_static_from",
 ]
 
 # Map state of a Reconstruction: arrays and counters.
@@ -198,3 +200,38 @@ def slam_state_from_numpy(state: dict, cfg, camera: Pinhole, device=None):
     out.pgo_runs = int(state.get("pgo_runs", 0))
     kp = state.get("kp_landmark")
     return out, None if kp is None else [np.array(k, np.int64, copy=True) for k in kp]
+
+
+# TrackState fields by dtype (the rest are float32).
+_TRACK_BOOL = ("pose_mask", "pt_mask", "obs_mask", "prev_mask")
+_TRACK_INT = ("pt_last_seen", "obs_cam", "obs_pt", "n_frames", "n_points", "n_obs", "last_kf",
+              "prev_f", "prev_lm")
+
+
+def track_state_to_numpy(state) -> dict:
+    """A device tracker state (either package's TrackState, or a dict with
+    its field names) as a dict of numpy arrays, the counters 0-dim."""
+    out = {}
+    for name in TrackState._fields:
+        v = _field(state, name)
+        out[name] = v.cpu().numpy().copy() if isinstance(v, torch.Tensor) else np.array(v)
+    return out
+
+
+def track_state_from_numpy(state, device=None) -> TrackState:
+    """The port's TrackState on ``device`` from ``track_state_to_numpy``'s
+    dict (or any object with TrackState's field names), so that both
+    packages continue from one state."""
+    def kind(name):
+        return (torch.bool if name in _TRACK_BOOL else
+                torch.int32 if name in _TRACK_INT else torch.float32)
+
+    return TrackState(**{name: _t(_field(state, name), device, kind(name))
+                         for name in TrackState._fields})
+
+
+def tracker_static_from(other) -> TrackerStatic:
+    """The port's TrackerStatic holding the values of ``other`` (the JAX
+    package's TrackerStatic, or a dict with its field names)."""
+    return TrackerStatic(**{f.name: _field(other, f.name)
+                            for f in dataclasses.fields(TrackerStatic)})

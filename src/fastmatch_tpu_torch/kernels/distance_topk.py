@@ -23,7 +23,7 @@ import torch
 
 from fastmatch_tpu_torch.core.containers import Descriptors, Matches
 from fastmatch_tpu_torch.kernels import _build
-from fastmatch_tpu_torch.matching.matcher import BIG
+from fastmatch_tpu_torch.matching.matcher import BIG, ratio_sq
 
 _BQ = 128         # query rows per block (csrc/match_tile.cuh)
 _BN = 128         # bank rows per tile
@@ -187,8 +187,7 @@ def match_pair_fused(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.
     a2m = torch.where(desc_a.mask, a2, BIG).contiguous()
     b2m = torch.where(desc_b.mask, b2, BIG).contiguous()
     idx1, d1, d2nd, nnb = distance_topk(a, b, b2m, a2m, fast=precision == "fast")
-    r = torch.tensor(ratio, dtype=torch.float32, device=a.device)
-    ok = desc_a.mask & (d1 < r * r * d2nd) & (d2nd < BIG)
+    ok = desc_a.mask & (d1 < ratio_sq(ratio) * d2nd) & (d2nd < BIG)
     if cross_check:
         mutual = nnb[idx1.long()] == torch.arange(n, dtype=torch.int32, device=a.device)
         ok = ok & mutual

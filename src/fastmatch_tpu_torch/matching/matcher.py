@@ -34,6 +34,12 @@ BIG = float(np.float32(3.0e38))
 BACKEND_ALIASES = {"jnp": "plain", "pallas": "kernel"}
 
 
+def ratio_sq(ratio: float) -> float:
+    """ratio^2 rounded as float32 arithmetic rounds it, as a host scalar: a
+    device scalar built from the host would cost a synchronizing copy."""
+    return float(np.float32(ratio) * np.float32(ratio))
+
+
 def resolve_backend(backend: str, dev: torch.device) -> str:
     """"plain" or "kernel" for a backend name of either package ("auto":
     the kernel on cuda, the plain version on cpu)."""
@@ -58,14 +64,14 @@ def match_pair_plain(desc_a: Descriptors, desc_b: Descriptors, ratio: float = 0.
     b2m = torch.where(desc_b.mask, b2, BIG)
     neg2 = -2.0 * (a @ b.T)
     srow = neg2 + b2m[None, :]
-    # lax.top_k(-srow, 2): the two smallest, ties to the lower index (a
-    # stable ascending sort gives exactly that order).
-    s, idx = torch.sort(srow, dim=1, stable=True)
-    idx1 = idx[:, 0]
-    d1 = torch.clamp(s[:, 0] + a2, min=0.0)
-    d2nd = torch.clamp(s[:, 1] + a2, min=0.0)
-    r = torch.tensor(ratio, dtype=torch.float32, device=a.device)
-    ok = desc_a.mask & (d1 < r * r * d2nd) & (d2nd < BIG)
+    # lax.top_k(-srow, 2): the two smallest, ties to the lower index. argmin
+    # returns the first minimum; the runner-up is the minimum of the rest.
+    idx1 = srow.argmin(dim=1)
+    s1 = srow.gather(1, idx1[:, None])[:, 0]
+    s2 = srow.scatter_(1, idx1[:, None], torch.inf).min(dim=1).values
+    d1 = torch.clamp(s1 + a2, min=0.0)
+    d2nd = torch.clamp(s2 + a2, min=0.0)
+    ok = desc_a.mask & (d1 < ratio_sq(ratio) * d2nd) & (d2nd < BIG)
     if cross_check:
         scol = neg2 + a2m[:, None]
         cm = scol.min(dim=0, keepdim=True).values

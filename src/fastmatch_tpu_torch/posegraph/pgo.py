@@ -328,7 +328,7 @@ def _pcg_normal_step(g: PoseGraph, poses: SE3, lam, huber_delta, kernel, upd,
     damp = lam * d + 1e-10
     eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
     Dd = torch.where(upd[:, None, None] > 0, D + torch.diag_embed(damp), eye6)
-    Minv = torch.linalg.inv(Dd)
+    Minv = torch.linalg.inv_ex(Dd)[0]  # no singularity check, which would read back
     # Edge i's row: Hii x_i + Hij x_j; edge j's: Hij^T x_i + Hjj x_j; a
     # prior's: Hk x_k (its second block is zero).
     A = torch.cat([Hii, Hij.transpose(-1, -2), *(Hk for _, Hk, _ in prior_groups)])
@@ -412,7 +412,7 @@ def pgo_solve(g: PoseGraph, max_iters: int = 30, lam0: float = 1e-4,
 
     T = g.poses
     cost0 = cost = cost_of(T)
-    lam = torch.tensor(lam0, dtype=torch.float32, device=T.t.device)
+    lam = torch.full((), lam0, dtype=torch.float32, device=T.t.device)
     it, done = 0, False
     while it < max_iters and not done:
         if solver == "dense":

@@ -239,9 +239,6 @@ def test_info_and_config(tmp_path):
     (["reconstruct", "d", "--export-colmap", "c"], 4),
     (["reconstruct", "d", "--export-kitti", "k.txt"], 4),
     (["reconstruct", "d", "--mode", "global"], 4),
-    (["slam", "d", "--engine", "device"], 3),
-    (["slam", "d", "--engine", "scan"], 3),
-    (["slam", "d", "--engine", "chunked"], 3),
     (["slam", "d", "--mesh", "bank=4"], 9),
     (["slam", "d", "--resume", "ck"], 9),
     (["slam", "d", "--plot", "p.png"], 4),

@@ -439,3 +439,70 @@ def test_pallas_config_hashes_alike():
         assert t.config_hash() == j.config_hash()
         assert interop.config_from(j).config_hash() == j.config_hash()
         assert interop.config_from(j).matching.backend == name
+
+
+def _stable_sort_top2(desc_a, desc_b, ratio, cross_check):
+    """``match_pair_plain`` as it took its row top-2 before: a stable
+    ascending sort of the row scores (ties to the lower index)."""
+    a, b = desc_a.data.float(), desc_b.data.float()
+    a2, b2 = (a * a).sum(-1), (b * b).sum(-1)
+    a2m = torch.where(desc_a.mask, a2, BIG)
+    b2m = torch.where(desc_b.mask, b2, BIG)
+    neg2 = -2.0 * (a @ b.T)
+    s, idx = torch.sort(neg2 + b2m[None, :], dim=1, stable=True)
+    idx1 = idx[:, 0]
+    d1 = torch.clamp(s[:, 0] + a2, min=0.0)
+    d2nd = torch.clamp(s[:, 1] + a2, min=0.0)
+    r = torch.tensor(ratio, dtype=torch.float32)
+    ok = desc_a.mask & (d1 < r * r * d2nd) & (d2nd < BIG)
+    if cross_check:
+        scol = neg2 + a2m[:, None]
+        cm = scol.min(dim=0, keepdim=True).values
+        row = torch.arange(a.shape[0])[:, None]
+        nn_b = torch.where(scol == cm, row, a.shape[0]).min(dim=0).values
+        ok = ok & (nn_b[idx1] == torch.arange(a.shape[0]))
+    return idx1.to(torch.int32), torch.where(ok, d1, BIG), ok
+
+
+@pytest.mark.parametrize("case", ["ties", "duplicate_rows", "masked_bank", "all_masked",
+                                  "two_columns"])
+@pytest.mark.parametrize("cross_check", [False, True])
+def test_plain_top2_as_stable_sort(case, cross_check):
+    """The plain matcher's argmin-and-runner-up top-2 takes the decisions,
+    indices and distances of the stable sort it replaced, on inputs whose
+    scores tie exactly (small-integer descriptors), banks with duplicate
+    rows, partly and wholly masked banks and rows, and a two-row bank."""
+    rng = np.random.default_rng(len(case) + 7 * cross_check)
+    n, m = (40, 2) if case == "two_columns" else (96, 160)
+    a = rng.integers(0, 3, size=(n, 16)).astype(np.float32)
+    b = rng.integers(0, 3, size=(m, 16)).astype(np.float32)
+    mask_a, mask_b = np.ones(n, bool), np.ones(m, bool)
+    if case == "duplicate_rows":
+        b[m // 2:] = b[: m - m // 2]
+        a[: n // 2] = b[rng.integers(0, m, n // 2)]
+    if case == "masked_bank":
+        mask_b[rng.random(m) < 0.6] = False
+        mask_a[rng.random(n) < 0.2] = False
+        b[~mask_b] = b[0]
+    if case == "all_masked":
+        mask_b[:] = False
+    ta = Descriptors(torch.from_numpy(a), torch.from_numpy(mask_a))
+    tb = Descriptors(torch.from_numpy(b), torch.from_numpy(mask_b))
+    valid = []
+    for ratio in (0.8, 1.0, 1.5):
+        got = match_pair_plain(ta, tb, ratio=ratio, cross_check=cross_check)
+        idx, dist, ok = _stable_sort_top2(ta, tb, ratio, cross_check)
+        np.testing.assert_array_equal(got.idx.numpy(), idx.numpy())
+        np.testing.assert_array_equal(got.dist.numpy(), dist.numpy())
+        np.testing.assert_array_equal(got.valid.numpy(), ok.numpy())
+        valid.append(got.valid.numpy())
+    valid = np.concatenate(valid)
+    if case == "all_masked":
+        assert not valid.any()
+        return
+    assert valid.any() and not valid.all()
+    if case == "two_columns":
+        return
+    d2 = ((a[:, None] - b[None]) ** 2).sum(-1)[:, mask_b]
+    top2 = np.sort(d2, axis=1)[:, :2]
+    assert (top2[:, 0] == top2[:, 1]).any(), "no tied best and runner-up"

@@ -2,11 +2,15 @@
 
 Runs ``reconstruct(images=...)`` of the smoke scene (``chip_smoke.SMOKE_SCENE``,
 640x480, default ``PipelineConfig``), or with ``--path config4`` SIFT and
-``slam`` on the config-4 scene as ``chip_smoke.config4_slam`` runs them,
+``slam`` on the config-4 scene as ``chip_smoke.config4_slam`` runs them, or
+with ``--path config4-device`` SIFT and the device engine ``slam_device``
+on the whole 120-frame out-and-back orbit (``MapConfig.max_frames`` 128),
+as ``chip_smoke.config4_device_slam`` runs it,
 three times on ``cuda``: once to warm up
 (kernel builds, cuBLAS/cuSOLVER handles, the caching allocator), once timed,
-and once under ``torch.profiler`` with CPU and CUDA activities (the
-profiler's own host cost more than doubles that run's wall time). Prints one
+and once under ``torch.profiler`` tracing the CUDA activity (kernels and
+copies; every figure below reads only those, and tracing the host's
+operators too made a 120-frame device-engine run take over 20 minutes). Prints one
 JSON line and writes the same to ``chiprun_out/profile_<path>.json``:
 
 - wall seconds and host seconds per pipeline stage
@@ -21,7 +25,8 @@ JSON line and writes the same to ``chiprun_out/profile_<path>.json``:
   profiled run records each ``match_pair_fused`` call's shape in order and
   pairs the i-th with the i-th K2 tile kernel on the device's timeline.
 
-    python tools/profile_main_path.py [--path config3|config4] [--frames N] [--top K]
+    python tools/profile_main_path.py [--path config3|config4|config4-device] [--frames N]
+        [--top K]
 """
 
 from __future__ import annotations
@@ -69,10 +74,12 @@ def main(argv=None) -> int:
     from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
     from fastmatch_tpu_torch.pipeline.reconstruct import detect_features, reconstruct
     from fastmatch_tpu_torch.pipeline.slam import SlamConfig, slam
+    from fastmatch_tpu_torch.pipeline.slam_device import slam_device
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("config3", "config4"), default="config3")
+    ap.add_argument("--path", choices=("config3", "config4", "config4-device"),
+                    default="config3")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -81,25 +88,32 @@ def main(argv=None) -> int:
         return 2
 
     _build.build_all()
-    scene, views = (render_smoke_scene if args.path == "config3"
-                    else render_config4_scene)(args.frames)
+    if args.path == "config3":
+        scene, views = render_smoke_scene(args.frames)
+    else:
+        frames = args.frames or (120 if args.path == "config4-device" else None)
+        scene, views = render_config4_scene(frames)
     cam = Pinhole.from_K(scene.K)
 
     def run():
-        """The path's Reconstruction (SLAM's detection in its "sift" stage)."""
+        """(the path's Reconstruction (SLAM's detection in its "sift"
+        stage), the input frame of each of its frames)."""
         if args.path == "config3":
-            return reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
-        cfg = PipelineConfig(map=MapConfig(max_frames=max(64, len(views))))
+            rec = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+            return rec, np.arange(rec.n_frames)
+        cfg = PipelineConfig(map=MapConfig(
+            max_frames=max(64, 1 << (len(views) - 1).bit_length())))
         secs = {"sift": 0.0}
         feats = detect_features(views, cfg, "cuda", secs)
-        rec = slam(feats, cam, cfg, SlamConfig(), device="cuda").rec
-        rec.stage_seconds["sift"] = secs["sift"]
-        return rec
+        engine = slam_device if args.path == "config4-device" else slam
+        out = engine(feats, cam, cfg, SlamConfig(), device="cuda")
+        out.rec.stage_seconds["sift"] = secs["sift"]
+        return out.rec, np.asarray(out.frame_seq or range(out.rec.n_frames))
 
     run()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plain = run()
+    plain, _ = run()
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
@@ -113,9 +127,9 @@ def main(argv=None) -> int:
 
     k2.match_pair_fused = record_k2  # matching.match_pair imports it per call
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rec = run()
+            rec, seq = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -161,7 +175,7 @@ def main(argv=None) -> int:
         for d in k2_by_shape.values():
             d["mean_us"] = d["device_ms"] * 1e3 / d["launches"]
     n = rec.n_frames
-    gt = -np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])
+    gt = -np.einsum("fji,fj->fi", scene.R[seq], scene.t[seq])
     out = dict(
         path=args.path, device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line(),
         frames=n, wall_s=wall_plain, frames_per_s=n / wall_plain,
