@@ -64,8 +64,18 @@ Phases, in order; any failure exits nonzero before the result line:
    least 3 launches a frame, K3 one a frame in ``slam_scan_images`` and
    none in the feature-driven engines, K4 and K5 launched, K1 not;
 9. the CLI (``cli``): ``info``, ``reconstruct``, ``evaluate``, ``match`` and
-   ``slam`` (``--engine auto``: the device engine on the card), then the
-   grouped BA and the 5-point solver on the card.
+   ``slam`` (``--engine auto``: the device engine on the card);
+10. the small-baseline front end and dense depth (``vo_paths``) at default
+   widths on the 50 smoke frames and a rectified right stream:
+   ``visual_odometry`` and ``visual_odometry_scan`` twice each,
+   ``stereo_visual_odometry``, ``stereo_disparity`` and ``rectify_pair``,
+   ``densify``, ``track_pair`` at capacity 1024 and the ``vialign`` CLI,
+   each run's launch counts set to 0 just before and read just after. Gates:
+   every frame posed, ATE against the JAX package's figures, reruns
+   bit-identical, the stereo run's metric scale, K3 ``1 + levels`` launches
+   a tracked frame, K4 and K5 launched, K1 and K2 not, and card against CPU
+   for ``track_pair``, ``stereo_disparity``, ``densify`` and ``vialign``;
+   then the grouped BA and the 5-point solver on the card.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -126,6 +136,96 @@ def render_smoke_scene(n_frames=None):
     frames = list(range(p["n_frames"] if n_frames is None else n_frames))
     views = render_scene_views(scene, rng, image_size=p["image_size"], frames=frames)
     return scene, views
+
+
+# The VO phase's stereo rig: the smoke scene's left frames and right frames
+# from a camera displaced by VO_BASELINE along its own +x axis (the
+# construction of tests/test_stereo_vo.py:_right_scene), rendered with the
+# left frames' appearance draws so the pair is a true rectified pair. The
+# landmarks lie within 2*sqrt(3) of the orbit's centre, 6 away, so the
+# largest disparity is 500 * 0.2 / (6 - 2*sqrt(3)) = 39.4 px, inside
+# StereoConfig.max_disp = 64.
+VO_BASELINE = 0.2
+
+
+def render_vo_scene(n_frames=None):
+    """(scene, left frames, right frames) of the VO phase: the left frames
+    are ``render_smoke_scene``'s, the right ones the rig's second camera."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth import SyntheticScene, render_scene_views
+
+    p = SMOKE_SCENE
+    rng = np.random.default_rng(p["seed"])
+    scene = SyntheticScene(rng, n_points=p["n_points"], n_frames=p["n_frames"],
+                           image_size=p["image_size"], span=p["span"])
+    rng_r = np.random.default_rng()
+    rng_r.bit_generator.state = rng.bit_generator.state
+    frames = list(range(p["n_frames"] if n_frames is None else n_frames))
+    left = render_scene_views(scene, rng, image_size=p["image_size"], frames=frames)
+    right = render_scene_views(right_scene(scene, VO_BASELINE, p["image_size"]), rng_r,
+                               image_size=p["image_size"], frames=frames)
+    return scene, left, right
+
+
+def right_scene(scene, baseline, image_size):
+    """The scene seen by the rig's right camera: x_cam_r = R X + t - [b, 0, 0]."""
+    import types
+
+    import numpy as np
+
+    w, h = image_size
+    t_r = scene.t - np.array([baseline, 0.0, 0.0])
+    cam = np.einsum("fij,pj->fpi", scene.R, scene.points) + t_r[:, None, :]
+    z = cam[..., 2]
+    uv = (cam[..., :2] / np.clip(z[..., None], 1e-9, None)) @ np.diag(
+        [scene.K[0, 0], scene.K[1, 1]]) + scene.K[:2, 2]
+    vis = (z > 0.1) & (uv[..., 0] >= 0) & (uv[..., 0] < w) & (uv[..., 1] >= 0) & (uv[..., 1] < h)
+    return types.SimpleNamespace(points=scene.points, R=scene.R, t=t_r, K=scene.K, pixels=uv,
+                                 visible=vis)
+
+
+def imu_circle(n_frames=8, s_true=2.2, per_interval=300, dt_frames=0.4):
+    """A monocular trajectory and its IMU samples, in numpy: the analytic
+    circle of tests/test_imu.py (radius 2, 0.9 rad/s, z drift 0.15 per s,
+    body yawing with the motion), keyframes every ``dt_frames`` seconds,
+    centres scaled by 1 / ``s_true``; ideal gyro and specific force
+    R^T (a - g) at ``per_interval`` samples an interval. Returns (traj
+    dict R, t, points; imu dict gyro, accel, dt, interval; true centres)."""
+    import numpy as np
+
+    g_w = np.array([0.0, 0.0, -9.81])
+    om, r, zdrift = 0.9, 2.0, 0.15
+
+    def circle(t):
+        t = np.asarray(t, np.float64)
+        p = np.stack([r * np.cos(om * t), r * np.sin(om * t), zdrift * t], -1)
+        a = np.stack([-r * om * om * np.cos(om * t), -r * om * om * np.sin(om * t),
+                      np.zeros_like(t)], -1)
+        R = np.zeros((len(t), 3, 3))
+        R[:, 0, 0], R[:, 0, 1] = np.cos(om * t), -np.sin(om * t)
+        R[:, 1, 0], R[:, 1, 1] = np.sin(om * t), np.cos(om * t)
+        R[:, 2, 2] = 1.0
+        return R, p, a
+
+    kf_t = dt_frames * np.arange(n_frames)
+    R_wb, p, _ = circle(kf_t)
+    R_wc = R_wb.transpose(0, 2, 1).astype(np.float32)
+    C = (p / s_true).astype(np.float32)
+    traj = dict(R=R_wc, t=-np.einsum("fij,fj->fi", R_wc, C),
+                points=np.zeros((5, 3), np.float32))
+    parts = {k: [] for k in ("gyro", "accel", "dt", "interval")}
+    for i in range(n_frames - 1):
+        ts = np.linspace(kf_t[i], kf_t[i + 1], per_interval, endpoint=False)
+        R, _, a = circle(ts)
+        parts["gyro"].append(np.tile(np.array([0.0, 0.0, om]), (per_interval, 1)))
+        parts["accel"].append(np.einsum("nij,nj->ni", R.transpose(0, 2, 1), a - g_w))
+        parts["dt"].append(np.full(per_interval, (kf_t[i + 1] - kf_t[i]) / per_interval))
+        parts["interval"].append(np.full(per_interval, i))
+    imu = {k: np.concatenate(v).astype(np.int64 if k == "interval" else np.float32)
+           for k, v in parts.items()}
+    return traj, imu, p
 
 
 # BASELINE.json config 4 ("Pose-graph SLAM: 500-keyframe sequence with loop
@@ -1092,6 +1192,42 @@ def _k3_frame_sets(dev):
             "orb_frame": orb._detect(img, orb.ORBConfig())[1]}
 
 
+def _k3_klt_sets(dev):
+    """The K3 segments of KLT tracking one rendered 640x480 smoke pair (frames
+    0 and 1), as ``track_pyramids`` hands them to the kernel, recorded
+    from a real call: at capacities 512 (VO) and 1024 (``flow``), the
+    template launch (every level's 16 px set, 3 one-level stacks) and the
+    target launch of each level (32 px, from the coarser level's flow)."""
+    import torch
+
+    from fastmatch_tpu_torch.features import klt
+
+    _, views = render_smoke_scene(2)
+    cfg = klt.KLTConfig()
+    p0 = klt.build_pyramid(views[0], cfg, dev)
+    p1 = klt.build_pyramid(views[1], cfg, dev)
+    out = {}
+    real = klt.gather_patch_sets
+    for cap in (512, 1024):
+        calls = []
+
+        def record(sets):
+            calls.append([klt.PatchSet(s.stack, s.lyx.clone(), s.patch, s.pad) for s in sets])
+            return real(sets)
+
+        kps = klt.shi_tomasi(p0[0], capacity=cap, device=dev)
+        klt.gather_patch_sets = record
+        try:
+            klt.track_pyramids(p0, p1, kps.xy, kps.mask, cfg, dev)
+        finally:
+            klt.gather_patch_sets = real
+        torch.cuda.synchronize()
+        out[f"klt_templates_K{cap}"] = calls[0]
+        for l, sets in zip(range(cfg.levels - 1, -1, -1), calls[1:]):
+            out[f"klt_targets_level{l}_K{cap}"] = sets
+    return out
+
+
 def _k3_edge_sets(rng, dev):
     """(name, segments, launches a call) of K3's edge cases, with starts
     beyond both edges of each padded stack and levels out of range."""
@@ -1153,6 +1289,10 @@ def check_k3(rng):
       clamped flat index: wrapper ms, device us per launch (one launch a
       call), bound, plain ms, host us per call and ``library_ms`` (the sum
       over segments of ``torch.take`` on a precomputed int64 flat index);
+    - KLT's sets (``_k3_klt_sets``): the template launch and each level's
+      target launch of a rendered 640x480 pair at 512 and 1024 corners,
+      bit-equal to the plain version and to ``torch.take``, with the same
+      figures as the frame sets;
     - edge cases (``_k3_edge_sets``), with the launches each call makes.
 
     The kernels line's entry is the SIFT frame set's."""
@@ -1219,6 +1359,28 @@ def check_k3(rng):
         if what == "sift_frame":
             entry = dict(max_abs_err=0.0, ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms,
                          bound_by=b_by, library_ms=d["library_ms"])
+
+    for what, sets in _k3_klt_sets(dev).items():
+        got = k3.gather_patch_sets(sets)
+        ref = k3.gather_patch_sets_plain(sets)
+        idx = [_k3_flat_index(s) for s in sets]
+        take = [torch.take(s.stack, i) for s, i in zip(sets, idx)]
+        equal, equal_take = _k3_same(got, ref), _k3_same(got, take)
+        us, seen = device_us(lambda: k3.gather_patch_sets(sets), K3_KERNELS, n=50)
+        b_ms, b_by = bound(_k3_bytes(sets))
+        d = dict(what=what, segments=[dict(stack=list(s.stack.shape), K=s.lyx.shape[0],
+                                           P=s.patch, pad=s.pad) for s in sets],
+                 bit_equal=equal, equal_to_take=equal_take, device_us_per_launch=us,
+                 profiled_launches=seen, bound_ms=b_ms, bound_by=b_by,
+                 ms=cuda_ms(lambda: k3.gather_patch_sets(sets)),
+                 plain_ms=cuda_ms(lambda: k3.gather_patch_sets_plain(sets)),
+                 library_ms=cuda_ms(lambda: [torch.take(s.stack, i) for s, i in zip(sets, idx)]),
+                 host_us=host_us(lambda: k3.gather_patch_sets(sets), n=500))
+        details.append(d)
+        log("K3", json.dumps(d))
+        if not (equal and equal_take) or seen != 50:
+            raise AssertionError(f"K3 {what}: bit-equal to plain {equal}, to torch.take "
+                                 f"{equal_take}, {seen} launches in 50 calls")
 
     bad = []
     for what, sets, want in _k3_edge_sets(rng, dev):
@@ -2292,6 +2454,314 @@ def cli_phase(scene, views, direct):
 GROUPED_BA_RTOL = 1e-3
 
 
+# -- phase 10: the small-baseline front end and dense depth --------------------
+
+# The JAX package's figures on the VO phase's inputs (``render_vo_scene``, 50
+# frames, default configs), on a CPU: ``tools/jax_vo_reference.py --frames 50
+# --seed 0,1,2,3,4,5,6,7`` (the host engines' draws come from PRNGKey(0)
+# there; the tool offsets that key by the seed). Each mono engine boots at
+# frame 18 and poses frames 1-17 afterwards by PnP on the ~43 tracks that
+# survive to it: that PnP's draws set the whole sequence's ATE (0.043 to
+# 0.109 over the host engine's seeds), while the ATE of the frames from the
+# boot frame on is the same to 3 digits for every seed (``ate_from_boot``).
+JAX_VO = {
+    "host": dict(ate_seeds=[0.04401319592143247, 0.0432832829965845, 0.04274566674674535,
+                            0.04430101606452639, 0.08858922598027572, 0.10861084385959532,
+                            0.05655711371889059, 0.05036592651496649],
+                 ate_from_boot_seeds=[0.01321114366425271, 0.013226377906433376,
+                                      0.013211091827768839],
+                 keyframes=33, n_points=578, boot=18),
+    "scan": dict(ate_seeds=[0.05937518684038394, 0.06573150008351221, 0.0574511311149668,
+                            0.051163843492193564, 0.10906040748837514, 0.13867574560451626,
+                            0.07113529571643114, 0.04130978825166229],
+                 ate_from_boot_seeds=[0.01338473134884371, 0.013386038149468002,
+                                      0.013387941892084409],
+                 keyframes=33, n_points=578, boot=18),
+    "stereo": dict(scale_seeds=[1.00229975553181, 0.9966015710467938, 1.043146205008661,
+                                1.0172222788810001, 1.002508988722298],
+                   ate_rigid_seeds=[0.023387135220327142, 0.026077240627437184,
+                                    0.09152988695609592, 0.04526832055305423,
+                                    0.03866798114264105],
+                   fallbacks_seeds=[2, 4, 4, 6, 2]),
+    "rectified_pair_valid_frac": 0.3865885416666667,
+    "unrectified_pair_0_6_valid_frac": 0.24886393229166667,
+}
+VO_RIGID_ATE = 0.15       # tests/test_stereo_vo.py::test_metric_trajectory's gate
+# That test also allows 3 flagged fallbacks and a scale within 0.03 of 1; on
+# this sequence the JAX package gives 2 / 4 / 4 / 6 / 2 fallbacks (frames
+# 40-49, where few tracks survive) and scales 0.997-1.043 over seeds 0-4.
+# So, as for the SLAM engines: at most its most fallbacks, and a scale
+# error at most ATE_SPREAD_MARGIN times its largest.
+VO_MAX_FALLBACKS = max(JAX_VO["stereo"]["fallbacks_seeds"])
+VO_UNRECTIFIED_PAIR = (0, 6)
+
+
+def _vo_run(name, fn, gt, frames, stats, wrappers):
+    """Run one VO engine with every kernel's launch count set to 0 just
+    before and read just after, and its host synchronizations counted;
+    record seconds, frames/s, syncs a frame, peak memory, launches, the
+    sim(3) ATE, the Umeyama scale and the rigid ATE."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from vo_fixtures import summary
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            rec = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    st = dict(summary(rec, gt), seconds=wall, frames_per_s=frames / wall, host_syncs=syncs,
+              host_syncs_per_frame=syncs / frames, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+              launches={k: w.launches for k, w in wrappers.items()},
+              stage_seconds=rec.stage_seconds,
+              finite=bool(np.isfinite(rec.R[:rec.n_frames]).all()
+                          and np.isfinite(rec.points[rec.pt_mask]).all()))
+    stats[name] = st
+    log(f"vo_paths {name}", json.dumps({k: v for k, v in st.items() if k != "stage_seconds"}))
+    return rec
+
+
+def _same_rec(a, b, names=("R", "t", "points", "obs_cam", "obs_pt", "obs_uv", "obs_mask")):
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in names)
+
+
+def vo_paths():
+    """The small-baseline front end and dense depth on the card, at default
+    widths (``VOConfig()``: capacity 512, KLT 3 levels, win 11, 8
+    iterations; ``PipelineConfig()``, ``StereoConfig()``: 64 disparities,
+    win 9; ``StereoVOConfig()``) on ``render_vo_scene``'s 50 640x480 frames
+    (the config-3 smoke sequence) and their right frames at VO_BASELINE.
+    Each run has every kernel's launch count set to 0 just before and read
+    just after, its host synchronizations counted and its peak memory read:
+    ``visual_odometry`` twice, ``visual_odometry_scan`` twice,
+    ``stereo_visual_odometry``, ``stereo_disparity`` on frame 0's rectified
+    pair (and on the CPU), ``rectify_pair`` + ``stereo_disparity`` on the
+    unrectified pair VO_UNRECTIFIED_PAIR at its true relative pose (and on
+    the CPU), ``densify`` over the host engine's trajectory (and on the
+    CPU), ``track_pair`` at capacity 1024 on frames 0 and 1 (and on the
+    CPU), and the ``vialign`` CLI on ``imu_circle``'s trajectory and IMU
+    runs (and with ``--device cpu``).
+
+    Gates: each mono engine poses every frame with no PnP fallback, ATE <
+    ATE_GATE, and the ATE of the frames from its boot frame on at most
+    ATE_SPREAD_MARGIN times the JAX package's largest over seeds 0-2
+    (``JAX_VO``; the whole sequence's ATE is recorded beside the JAX
+    package's range over seeds 0-7: the retroactive poses before the boot
+    frame spread with the draws in both packages); its two runs
+    bit-identical; stereo VO every frame posed, at most VO_MAX_FALLBACKS
+    fallbacks, the scale's distance from 1 at most ATE_SPREAD_MARGIN times
+    the JAX package's largest over seeds 0-4, rigid ATE < VO_RIGID_ATE; K3 exactly ``1 + levels``
+    launches a tracked frame (and none in the rest), K4 and K5 launched by
+    the engines, K1 and K2 never; card against CPU: ``track_pair`` corners
+    equal, status equal on >= 0.99 of them and positions within 0.01 px on
+    the tracks live in both; ``stereo_disparity`` valid masks equal on >=
+    0.999 of the pixels, disparities within 1e-3 px where both are valid
+    (both pairs); ``densify``'s point count within 2%; ``vialign``'s scale
+    and gravity within 1e-4."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from fastmatch_tpu_torch import cli
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.dense.densify import densify
+    from fastmatch_tpu_torch.dense.stereo import rectify_pair, stereo_disparity
+    from fastmatch_tpu_torch.features.klt import KLTConfig, track_pair
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+    from fastmatch_tpu_torch.pipeline.stereo_vo import StereoVOConfig, stereo_visual_odometry
+    from fastmatch_tpu_torch.pipeline.vo import VOConfig, visual_odometry
+    from fastmatch_tpu_torch.pipeline.vo_scan import _BOOT_CHUNK, visual_odometry_scan
+
+    wrappers = _kernel_wrappers()
+    t0 = time.perf_counter()
+    scene, left, right = render_vo_scene()
+    n = len(left)
+    out = dict(render_seconds=time.perf_counter() - t0, jax_cpu=JAX_VO, runs={}, card_vs_cpu={})
+    cam = Pinhole.from_K(scene.K)
+    cfg = PipelineConfig()
+    vo = VOConfig()
+    levels = vo.klt.levels
+    gt = _centers_np(scene.R[:n], scene.t[:n])
+    runs = out["runs"]
+    recs = {
+        "host": _vo_run("host", lambda: visual_odometry(left, cam, cfg, vo, device=DEV), gt, n,
+                        runs, wrappers),
+        "host_again": _vo_run("host_again", lambda: visual_odometry(left, cam, cfg, vo,
+                                                                    device=DEV), gt, n, runs,
+                              wrappers),
+        "scan": _vo_run("scan", lambda: visual_odometry_scan(left, cam, cfg, vo, device=DEV), gt,
+                        n, runs, wrappers),
+        "scan_again": _vo_run("scan_again", lambda: visual_odometry_scan(left, cam, cfg, vo,
+                                                                         device=DEV), gt, n,
+                              runs, wrappers),
+        "stereo": _vo_run("stereo", lambda: stereo_visual_odometry(
+            left, right, cam, VO_BASELINE, cfg, StereoVOConfig(), device=DEV), gt, n, runs,
+            wrappers),
+    }
+    fails = []
+    parity = dict(host_runs_bit_identical=_same_rec(recs["host"], recs["host_again"]),
+                  scan_runs_bit_identical=_same_rec(recs["scan"], recs["scan_again"]))
+    out["parity"] = parity
+    fails += [f"parity: {k} is false" for k, v in parity.items() if not v]
+    for name, st in runs.items():
+        la = st["launches"]
+        engine = name.replace("_again", "")
+        # Tracked frames: every frame after the first, and in the scan
+        # engine the rest of the bootstrap's last chunk again.
+        tracked = n - 1
+        if engine == "scan":
+            fb = st["boot"][0]
+            chunk_end = min(1 + _BOOT_CHUNK * ((fb - 1) // _BOOT_CHUNK + 1), n)
+            tracked = (chunk_end - 1) + (n - 1 - fb)
+        st["tracked_frames"] = tracked
+        st["k3_launches_per_tracked_frame"] = la["gather_patch_sets"] / tracked
+        if la["gather_patch_sets"] != (1 + levels) * tracked or la["gather_patches"]:
+            fails.append(f"{name}: K3 launches {la}, want {1 + levels} a tracked frame "
+                         f"({tracked} frames)")
+        if la["batch_match"] or la["distance_topk"]:
+            fails.append(f"{name}: K1 or K2 launched: {la}")
+        fails += [f"{name}: kernel {k} not launched"
+                  for k in ("sorted_segment_sum", "sorted_gather_rows") if la[k] <= 0]
+        if st["posed"] != n or st["n_frames"] != n or not st["finite"]:
+            fails.append(f"{name}: {st['posed']}/{n} frames posed, or non-finite output")
+        if engine == "stereo":
+            scale_tol = ATE_SPREAD_MARGIN * max(abs(x - 1) for x in JAX_VO[engine]["scale_seeds"])
+            if (len(st["pnp_failed"]) > VO_MAX_FALLBACKS or abs(st["scale"] - 1) > scale_tol
+                    or not st["ate_rigid"] < VO_RIGID_ATE):
+                fails.append(f"stereo: fallbacks {st['pnp_failed']}, scale {st['scale']}, rigid "
+                             f"ATE {st['ate_rigid']}")
+            continue
+        fb = st["boot"][0]
+        st["ate_from_boot"] = _ate_np(_centers_np(recs[name].R[fb:n], recs[name].t[fb:n]),
+                                      gt[fb:])
+        ref = max(JAX_VO[engine]["ate_from_boot_seeds"])
+        st["jax_ate_range_seeds_0_7"] = [min(JAX_VO[engine]["ate_seeds"]),
+                                         max(JAX_VO[engine]["ate_seeds"])]
+        if (st["pnp_failed"] or not st["ate"] < ATE_GATE
+                or st["ate_from_boot"] > ATE_SPREAD_MARGIN * ref):
+            fails.append(f"{name}: fallbacks {st['pnp_failed']}, ATE {st['ate']} (gate < "
+                         f"{ATE_GATE}), ATE from the boot frame {st['ate_from_boot']} (gate <= "
+                         f"{ATE_SPREAD_MARGIN} x {ref})")
+
+    # ---- card against CPU ----
+    cmp_ = out["card_vs_cpu"]
+    for w in wrappers.values():
+        w.launches = 0
+    klt = KLTConfig()
+    t0 = time.perf_counter()
+    card = [x.cpu().numpy() for x in track_pair(left[0], left[1], klt, capacity=1024,
+                                                device=DEV)]
+    card_s = time.perf_counter() - t0
+    k3_track = wrappers["gather_patch_sets"].launches
+    cpu = [x.numpy() for x in track_pair(left[0], left[1], klt, capacity=1024, device="cpu")]
+    same0 = (card[0] == cpu[0]).all(1)
+    st_card, st_cpu = card[2][same0], cpu[2][same0]
+    both = st_card & st_cpu
+    d = dict(corners_equal=float(same0.mean()), status_agreement=float((st_card == st_cpu).mean()),
+             live=int(both.sum()),
+             max_dxy=float(np.abs(card[1][same0][both] - cpu[1][same0][both]).max())
+             if both.any() else None, seconds=card_s, k3_launches=k3_track)
+    cmp_["track_pair_1024"] = d
+    if (d["corners_equal"] < 0.99 or d["status_agreement"] < 0.99 or not both.any()
+            or d["max_dxy"] > 0.01 or k3_track != 1 + levels):
+        fails.append(f"track_pair card vs CPU: {d}")
+
+    def disparity(a, b, rect, dev):
+        if rect is not None:
+            a, b, _ = rectify_pair(a, b, scene.K, *rect, device=dev)
+        return (x.cpu().numpy() for x in stereo_disparity(a, b, device=dev))
+
+    def stereo_cmp(name, a, b, rect):
+        t0 = time.perf_counter()
+        dc, vc = disparity(a, b, rect, DEV)
+        secs = time.perf_counter() - t0
+        dp, vp = disparity(a, b, rect, "cpu")
+        bothv = vc & vp
+        r = dict(valid_frac_card=float(vc.mean()), valid_frac_cpu=float(vp.mean()),
+                 valid_frac_jax_cpu=JAX_VO[f"{name}_valid_frac"],
+                 mask_agreement=float((vc == vp).mean()),
+                 max_ddisp=float(np.abs(dc[bothv] - dp[bothv]).max()) if bothv.any() else None,
+                 seconds=secs)
+        cmp_[name] = r
+        if r["mask_agreement"] < 0.999 or not bothv.any() or r["max_ddisp"] > 1e-3:
+            fails.append(f"{name} card vs CPU: {r}")
+
+    stereo_cmp("rectified_pair", left[0], right[0], None)
+    i, j = VO_UNRECTIFIED_PAIR
+    R_ab = scene.R[j] @ scene.R[i].T
+    stereo_cmp("unrectified_pair_0_6", left[i], left[j], (R_ab, scene.t[j] - R_ab @ scene.t[i]))
+
+    host = recs["host"]
+    F = host.n_frames
+    args = (left[:F], host.R[:F], host.t[:F], scene.K)
+    kw = dict(sparse_points=host.points[host.pt_mask])
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    _, _, rep_card = densify(*args, **kw, device=DEV)
+    dens_s = time.perf_counter() - t0
+    _, _, rep_cpu = densify(*args, **kw, device="cpu")
+    r = dict(card=rep_card, cpu=rep_cpu, seconds=dens_s,
+             launches={k: w.launches for k, w in wrappers.items()})
+    cmp_["densify"] = r
+    if (rep_card["pairs_used"] != rep_cpu["pairs_used"] or rep_card["pairs_used"] < 1
+            or abs(rep_card["n_points"] - rep_cpu["n_points"]) > 0.02 * rep_cpu["n_points"]):
+        fails.append(f"densify card vs CPU: {rep_card} vs {rep_cpu}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        traj, imu, _ = imu_circle()
+        np.savez(os.path.join(tmp, "traj.npz"), **traj)
+        np.savez(os.path.join(tmp, "imu.npz"), **imu)
+        argv = ["vialign", "--traj", os.path.join(tmp, "traj.npz"), "--imu",
+                os.path.join(tmp, "imu.npz"), "--out", os.path.join(tmp, "m.npz")]
+        vc, secs = _cli(argv)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", "cpu", *argv])
+        vp = json.loads(buf.getvalue().strip().splitlines()[-1])
+    vc = vc[-1]
+    r = dict(card=vc, cpu=vp, seconds=secs)
+    cmp_["vialign"] = r
+    if (abs(vc["scale"] - vp["scale"]) > 1e-4 * abs(vp["scale"])
+            or np.abs(np.subtract(vc["gravity"], vp["gravity"])).max() > 1e-4 * 9.81):
+        fails.append(f"vialign card vs CPU: {r}")
+    log("vo_paths card vs CPU", json.dumps(cmp_))
+    if fails:
+        raise AssertionError(f"VO paths: {fails}")
+    return {k: runs[k]["launches"] for k in ("host", "scan", "stereo")}, out
+
+
+def _centers_np(R, t):
+    import numpy as np
+
+    return -np.einsum("fji,fj->fi", np.asarray(R, np.float64), np.asarray(t, np.float64))
+
+
+def _ate_np(est, gt):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from vo_fixtures import ate
+
+    return ate(est, gt)
+
+
 def grouped_ba(rec):
     """``ba_solve(grouped="auto")`` against the default on the main path's
     final BA problem (its live observation table, BA's config), with its
@@ -2570,6 +3040,7 @@ def main() -> int:
     device_slam_launches, details["config4_device_slam"] = phase(
         "config4_device_slam", config4_device_slam, *config4_inputs)
     details["cli"] = phase("cli", cli_phase, scene, views, details["main_path"])
+    vo_launches, details["vo_paths"] = phase("vo_paths", vo_paths)
     details["grouped_ba"] = phase("grouped_ba", grouped_ba, rec)
     details["five_point"] = phase("five_point", five_point, scene, views)
     details["launches_by_path"] = dict(main_path_and_config2=dict(launches),
@@ -2578,7 +3049,8 @@ def main() -> int:
                                        config4_pgo_k4=details["config4_pgo"][
                                            "k4_launches_on_the_path"],
                                        **{f"cli_{k}": details["cli"][k]["launches"] for k in (
-                                           "reconstruct", "match", "evaluate_synth")})
+                                           "reconstruct", "match", "evaluate_synth")},
+                                       **{f"vo_{k}": v for k, v in vo_launches.items()})
     log("phase_seconds", json.dumps(phase_s))
 
     meta = {

@@ -12,6 +12,12 @@ ported, with the JAX package's argument names and JSON output:
   evaluate    match precision/recall ('synth' pairs or an Oxford-VGG
               directory) or trajectory ATE/RPE ('traj --est --gt')
   slam        SLAM with loop closure (--engine auto|device|host|scan|chunked)
+  flow        KLT: Shi-Tomasi corners on A tracked into B
+  vo          KLT visual odometry over an image directory (--engine host|scan),
+              or metric stereo VO with --right
+  stereo      dense rectified-stereo depth of two images
+  densify     dense cloud from a posed image directory
+  vialign     visual-inertial metric upgrade of a trajectory
 
 Everything runs on the card unless ``--device cpu`` is given. An option or
 subcommand whose module is not ported yet raises ``NotImplementedError``
@@ -32,8 +38,7 @@ import numpy as np
 
 # Subcommands of the JAX package's CLI whose engines are not ported yet,
 # with their ROADMAP Queue 1 item.
-_UNPORTED_COMMANDS = {"flow": 5, "vo": 5, "stereo": 6, "densify": 6, "vialign": 7,
-                      "locate": 8, "merge": 8, "serve": 8}
+_UNPORTED_COMMANDS = {"locate": 8, "merge": 8, "serve": 8}
 
 
 def not_ported(what: str, item) -> NotImplementedError:
@@ -259,9 +264,20 @@ def _refuse_unported(args):
         raise not_ported("--gps (pipeline/georegister.py)", 4)
     if getattr(args, "checkpoint", None):
         raise not_ported("--checkpoint (pipeline/checkpoint.py)", 4)
-    for opt in ("export_ply", "export_colmap", "export_kitti"):
-        if getattr(args, opt, None):
-            raise not_ported(f"--{opt.replace('_', '-')} (utils/export.py)", 4)
+
+
+def _run_exports(args, rec, cam):
+    """--export-ply / --export-colmap / --export-kitti of a map."""
+    from fastmatch_tpu_torch.utils import export
+
+    if getattr(args, "export_ply", None):
+        export.save_ply(args.export_ply, rec.points[rec.pt_mask])
+    if getattr(args, "export_colmap", None):
+        # The CLI always centres the principal point (w/2, h/2).
+        size = (int(round(2 * float(cam.cx))), int(round(2 * float(cam.cy))))
+        export.save_colmap_text(args.export_colmap, rec, cam, image_size=size)
+    if getattr(args, "export_kitti", None):
+        export.save_kitti_trajectory(args.export_kitti, rec)
 
 
 def _metrics(args):
@@ -295,6 +311,7 @@ def cmd_reconstruct(args):
         metrics.close()
     if args.out:
         _save_map(args.out, rec)
+    _run_exports(args, rec, cam)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
                       "n_obs": rec.n_obs, "out": args.out}))
 
@@ -349,9 +366,248 @@ def cmd_slam(args):
         _save_map(args.out, rec)
     if args.trajectory:
         _write_tum(args.trajectory, rec)
+    _run_exports(args, rec, cam)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
                       "loop_closures": len(out.loop_edges), "pgo_runs": out.pgo_runs,
                       "engine": engine, "out": args.out}))
+
+
+def _image_dir(path):
+    """(first frame, iterator of every frame at its size, paths) of an
+    image directory in lexical order; a frame that fails to decode raises."""
+    import glob
+
+    from fastmatch_tpu_torch.utils.imageio import FrameLoader, load_gray
+
+    paths = sorted(glob.glob(path + "/*"))
+    if len(paths) < 2:
+        raise ValueError(f"{path}: need at least 2 frames, found {len(paths)}")
+    first = load_gray(paths[0])
+    h, w = first.shape
+
+    def frames(limit=len(paths)):
+        yield first
+        expected = 1
+        with FrameLoader(paths[1:limit], size=(w, h)) as fl:
+            for idx, img in fl:
+                if idx + 1 != expected:
+                    raise IOError(f"failed to decode {paths[expected]}")
+                expected += 1
+                yield img
+        if expected != limit:
+            raise IOError(f"failed to decode {paths[expected]}")
+
+    return first, frames, paths
+
+
+def cmd_flow(args):
+    """KLT tracking between two images: Shi-Tomasi corners on A tracked into
+    B, optionally filtered by the descriptor matcher's geometric verification."""
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import Keypoints, Matches
+    from fastmatch_tpu_torch.features.klt import KLTConfig, track_pair
+    from fastmatch_tpu_torch.utils.imageio import load_gray
+
+    dev = _device(args)
+    cfg = KLTConfig(levels=args.levels, win=args.win)
+    p0, p1, status, err = track_pair(load_gray(args.a), load_gray(args.b), cfg,
+                                     capacity=args.capacity, device=dev)
+    report = {"n_corners": int(status.shape[0]), "n_tracked": int(status.sum())}
+    if args.verify != "none":
+        from fastmatch_tpu_torch.matching.verify import verify_matches
+
+        cap = p0.shape[0]
+
+        def kp(xy):
+            return Keypoints(xy=xy, scale=torch.ones(cap, device=dev),
+                             angle=torch.zeros(cap, device=dev),
+                             score=torch.zeros(cap, device=dev), mask=status)
+
+        m = Matches(idx=torch.arange(cap, dtype=torch.int32, device=dev),
+                    dist=torch.where(status, err, torch.zeros_like(err)), valid=status)
+        vr = verify_matches(kp(p0), kp(p1), m, model=args.verify, thr_px=args.verify_thr,
+                            generator=torch.Generator(dev).manual_seed(0), device=dev)
+        status = vr.matches.valid
+        report["verified"] = bool(vr.ok)
+        report["model_inliers"] = int(vr.n_inliers)
+    st = status.cpu().numpy()
+    err = err.cpu().numpy()
+    if args.out:
+        np.savez(args.out, xy_a=p0.cpu().numpy()[st], xy_b=p1.cpu().numpy()[st], err=err[st])
+    mean_err = float(err[st].mean()) if st.any() else 0.0
+    print(json.dumps({**report, "n_final": int(st.sum()),
+                      "mean_residual": round(mean_err, 5), "out": args.out}))
+
+
+def cmd_stereo(args):
+    """Dense rectified-stereo depth of two images, given a rig baseline
+    (rectified inputs) or a relative pose .npz (R, t) to rectify them first;
+    a disparity/depth .npz and optionally a dense PLY point cloud."""
+    from fastmatch_tpu_torch.dense.stereo import (StereoConfig, depth_from_disparity,
+                                                  disparity_to_points, rectify_pair,
+                                                  stereo_disparity)
+    from fastmatch_tpu_torch.utils.imageio import load_gray
+
+    dev = _device(args)
+    left, right = load_gray(args.left), load_gray(args.right)
+    h, w = left.shape
+    fx = args.focal if args.focal else 1.2 * max(h, w)
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    baseline = args.baseline
+    if args.pose:
+        pose = np.load(args.pose)
+        la, rb, info = rectify_pair(left, right, K, pose["R"], pose["t"], device=dev)
+        left, right = la.cpu().numpy(), rb.cpu().numpy()
+        baseline = info["baseline"] * (args.baseline or 1.0)
+    elif baseline is None:
+        raise ValueError("need --baseline (rectified rig) or --pose npz")
+    cfg = StereoConfig(max_disp=args.max_disp, win=args.win)
+    disp, valid = stereo_disparity(left, right, cfg, device=dev)
+    depth = depth_from_disparity(disp, valid, fx, baseline).cpu().numpy()
+    disp, v = disp.cpu().numpy(), valid.cpu().numpy()
+    report = {"valid_frac": round(float(v.mean()), 4),
+              "median_depth": round(float(np.median(depth[v])), 4) if v.any() else None}
+    if args.out:
+        np.savez(args.out, disparity=disp, valid=v, depth=depth)
+        report["out"] = args.out
+    if args.export_ply:
+        from fastmatch_tpu_torch.utils.export import save_ply
+
+        pts, inten = disparity_to_points(disp, v, K, baseline, image=left, stride=args.stride,
+                                         max_depth=args.max_depth)
+        save_ply(args.export_ply, pts,
+                 colors=np.repeat((inten * 255).astype(np.uint8)[:, None], 3, axis=1))
+        report["ply"] = args.export_ply
+        report["n_points"] = int(len(pts))
+    print(json.dumps(report))
+
+
+def cmd_vo(args):
+    """KLT visual odometry over an image directory: the host engine, the
+    scan engine (--engine scan), or metric stereo VO with a rectified right
+    directory (--right)."""
+    from fastmatch_tpu_torch.features.klt import KLTConfig
+    from fastmatch_tpu_torch.pipeline.vo import VOConfig, visual_odometry
+
+    if args.right and args.engine != "host":
+        raise ValueError("--right runs the stereo engine; it cannot be combined with "
+                         f"--engine {args.engine}")
+    cfg = _load_config(args)
+    dev = _device(args)
+    first, frames, paths = _image_dir(args.input)
+    h, w = first.shape
+    cam = _make_camera(args, (w, h))
+    vo = VOConfig(capacity=args.capacity, bootstrap_px=args.bootstrap_px, kf_px=args.kf_px,
+                  klt=KLTConfig(levels=args.levels))
+    metrics = _metrics(args)
+    if args.right:
+        # A rectified stereo rig: metric VO, no bootstrap and no scale gauge.
+        from fastmatch_tpu_torch.pipeline.stereo_vo import (StereoVOConfig,
+                                                            stereo_visual_odometry)
+
+        rfirst, rframes, rpaths = _image_dir(args.right)
+        if len(rpaths) != len(paths):
+            raise ValueError(f"--right: {len(rpaths)} frames vs {len(paths)} left")
+        if rfirst.shape != first.shape:
+            raise ValueError(f"--right: frames of {rfirst.shape} vs {first.shape} left")
+        svo = StereoVOConfig(capacity=args.capacity, klt=KLTConfig(levels=args.levels))
+        rec = stereo_visual_odometry(frames(), rframes(), cam, args.baseline, cfg, svo,
+                                     metrics=metrics, device=dev)
+    elif args.engine == "scan":
+        # The scan engine takes the whole stack at once (one upload).
+        from fastmatch_tpu_torch.pipeline.vo_scan import visual_odometry_scan
+
+        rec = visual_odometry_scan(list(frames()), cam, cfg, vo, metrics=metrics, device=dev)
+    else:
+        rec = visual_odometry(frames(), cam, cfg, vo, metrics=metrics, device=dev)
+    if metrics:
+        metrics.log("stage_seconds", **rec.stage_seconds)
+        metrics.close()
+    if args.out:
+        _save_map(args.out, rec)
+    _run_exports(args, rec, cam)
+    n_kf = sum(1 for s in rec.frame_stats if s.get("kf"))
+    n_fail = sum(1 for s in rec.frame_stats if s.get("pnp_failed"))
+    print(json.dumps({"n_frames": rec.n_frames, "n_keyframes": n_kf,
+                      "n_points": int(rec.pt_mask.sum()), "n_obs": rec.n_obs,
+                      "pnp_failures": n_fail, "out": args.out}))
+
+
+def cmd_densify(args):
+    """Dense mapping: stereo-sweep selected frame pairs of a posed image
+    directory (poses from a vo/reconstruct/slam --out .npz) into one fused
+    world-frame cloud."""
+    from fastmatch_tpu_torch.dense.densify import densify
+    from fastmatch_tpu_torch.dense.stereo import StereoConfig
+    from fastmatch_tpu_torch.utils.export import save_ply
+
+    dev = _device(args)
+    traj = np.load(args.traj)
+    R, t = traj["R"], traj["t"]
+    sparse = traj["points"] if "points" in traj.files else None
+    first, frames, paths = _image_dir(args.input)
+    if len(paths) < R.shape[0]:
+        raise ValueError(f"{len(paths)} images < {R.shape[0]} poses")
+    images = list(frames(R.shape[0]))
+    h, w = first.shape
+    K = np.array([[args.focal, 0, w / 2], [0, args.focal, h / 2], [0, 0, 1.0]])
+    pts, inten, rep = densify(images, R, t, K, sparse_points=sparse,
+                              cfg=StereoConfig(max_disp=args.max_disp, win=args.win),
+                              stride=args.stride, voxel=args.voxel, device=dev)
+    if args.export_ply:
+        save_ply(args.export_ply, pts,
+                 colors=np.repeat((np.clip(inten, 0, 1) * 255).astype(np.uint8)[:, None], 3, 1))
+        rep["ply"] = args.export_ply
+    print(json.dumps(rep))
+
+
+def cmd_vialign(args):
+    """Visual-inertial metric upgrade: align a monocular trajectory .npz
+    (vo/reconstruct/slam --out) with IMU sample runs and write its metric,
+    gravity-aligned version."""
+    import torch
+
+    from fastmatch_tpu_torch.sensors.imu import gravity_rotation, preintegrate, vi_align
+
+    dev = _device(args)
+    traj = np.load(args.traj)
+    R_wc, t = traj["R"].astype(np.float32), traj["t"].astype(np.float32)
+    F = R_wc.shape[0]
+    imu = np.load(args.imu)
+    gyro, accel, dts = (imu["gyro"].astype(np.float32), imu["accel"].astype(np.float32),
+                        imu["dt"].astype(np.float32))
+    interval = imu["interval"].astype(np.int64)  # sample -> frame interval i
+    if interval.max() != F - 2:
+        raise ValueError(f"imu intervals cover 0..{interval.max()}, trajectory needs "
+                         f"0..{F - 2}")
+    # Samples per interval, padded to the longest interval with masked rows.
+    cap = int(np.bincount(interval, minlength=F - 1).max())
+    g_b = np.zeros((F - 1, cap, 3), np.float32)
+    a_b = np.zeros((F - 1, cap, 3), np.float32)
+    d_b = np.zeros((F - 1, cap), np.float32)
+    m_b = np.zeros((F - 1, cap), bool)
+    fill = np.zeros(F - 1, np.int64)
+    for s, i in enumerate(interval):
+        k = fill[i]
+        g_b[i, k], a_b[i, k], d_b[i, k] = gyro[s], accel[s], dts[s]
+        m_b[i, k] = True
+        fill[i] += 1
+    pres = preintegrate(g_b, a_b, d_b, torch.from_numpy(m_b), device=dev)
+    centers = -np.einsum("fji,fj->fi", R_wc, t)
+    s, g, _, resid = vi_align(R_wc.transpose(0, 2, 1), centers.astype(np.float32), pres,
+                              g_mag=args.g)
+    s = float(s)
+    g_np = g.cpu().numpy().astype(np.float64)
+    R_g = gravity_rotation(g_np)
+    R_new = np.einsum("fij,kj->fik", R_wc, R_g).astype(np.float32)
+    t_new = (s * t).astype(np.float32)
+    out = {"R": R_new, "t": t_new, "centers": -np.einsum("fji,fj->fi", R_new, t_new)}
+    if "points" in traj.files:
+        out["points"] = (s * (traj["points"] @ R_g.T)).astype(np.float32)
+    np.savez(args.out, **out)
+    print(json.dumps({"scale": round(s, 6), "gravity": [round(float(x), 4) for x in g_np],
+                      "resid": round(float(resid), 6), "out": args.out}))
 
 
 def _quat_xyzw(R):
@@ -518,6 +774,80 @@ def main(argv=None):
     sp.add_argument("--gt", help="traj: ground-truth trajectory (same formats)")
     sp.add_argument("--rpe-delta", type=int, default=1)
     sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("flow", help="KLT: Shi-Tomasi corners on A tracked into B")
+    sp.add_argument("a")
+    sp.add_argument("b")
+    sp.add_argument("--out", help=".npz of (xy_a, xy_b, err) for live tracks")
+    sp.add_argument("--capacity", type=int, default=1024, help="corner capacity")
+    sp.add_argument("--levels", type=int, default=3)
+    sp.add_argument("--win", type=int, default=11)
+    sp.add_argument("--verify", default="none", choices=["none", "fundamental", "homography"],
+                    help="geometric verification filter on the tracks")
+    sp.add_argument("--verify-thr", type=float, default=3.0)
+    sp.set_defaults(fn=cmd_flow)
+
+    sp = sub.add_parser("stereo", help="dense rectified-stereo depth: ZNCC shift-sweep, "
+                        "subpixel winner, left-right check")
+    sp.add_argument("left")
+    sp.add_argument("right")
+    sp.add_argument("--baseline", type=float,
+                    help="rig baseline in world units (rectified inputs)")
+    sp.add_argument("--pose", help=".npz with R (3,3), t (3,): rectify the pair first (t's "
+                    "scale sets the depth unit unless --baseline also gives a scale factor)")
+    sp.add_argument("--focal", type=float, help="fx in px (default 1.2*max(h,w))")
+    sp.add_argument("--max-disp", type=int, default=64)
+    sp.add_argument("--win", type=int, default=9)
+    sp.add_argument("--out", help="output .npz (disparity, valid, depth)")
+    sp.add_argument("--export-ply", help="dense colored point cloud PLY")
+    sp.add_argument("--stride", type=int, default=2, help="PLY subsample stride")
+    sp.add_argument("--max-depth", type=float, default=float("inf"))
+    sp.set_defaults(fn=cmd_stereo)
+
+    sp = sub.add_parser("vo", help="KLT visual odometry over an image directory: "
+                        "flow-tracked landmarks + PnP, keyframed triangulation + BA")
+    sp.add_argument("input", help="image directory (sorted lexically)")
+    _add_camera_args(sp)
+    sp.add_argument("--capacity", type=int, default=512, help="track slots")
+    sp.add_argument("--levels", type=int, default=3, help="KLT pyramid levels")
+    sp.add_argument("--bootstrap-px", type=float, default=20.0)
+    sp.add_argument("--kf-px", type=float, default=12.0)
+    sp.add_argument("--engine", choices=("host", "scan"), default="host",
+                    help="host: the per-frame loop on the host; scan: the device-resident "
+                    "loop after a batched bootstrap")
+    sp.add_argument("--right", metavar="DIR", help="rectified right-image directory: "
+                    "metric stereo VO (landmarks lifted by dense stereo); not with "
+                    "--engine scan")
+    sp.add_argument("--baseline", type=float, default=0.12,
+                    help="stereo baseline (world units) for --right")
+    sp.add_argument("--out", help="trajectory/points .npz")
+    sp.add_argument("--metrics", help="JSONL metrics path")
+    _add_export_args(sp)
+    sp.set_defaults(fn=cmd_vo)
+
+    sp = sub.add_parser("densify", help="dense mapping: stereo-sweep frame pairs of a "
+                        "posed sequence into a fused world cloud")
+    sp.add_argument("input", help="image directory (sorted lexically)")
+    sp.add_argument("--traj", required=True,
+                    help=".npz from vo/reconstruct --out (R, t[, points])")
+    sp.add_argument("--focal", type=float, default=500.0)
+    sp.add_argument("--max-disp", type=int, default=64)
+    sp.add_argument("--win", type=int, default=9)
+    sp.add_argument("--stride", type=int, default=2)
+    sp.add_argument("--voxel", type=float, help="fusion grid (world units; default depth/200)")
+    sp.add_argument("--export-ply", help="output PLY path")
+    sp.set_defaults(fn=cmd_densify)
+
+    sp = sub.add_parser("vialign", help="visual-inertial metric upgrade: align a monocular "
+                        "trajectory with IMU runs -> metric, gravity-aligned npz")
+    sp.add_argument("--traj", required=True,
+                    help="trajectory .npz (R, t[, points]) from vo/reconstruct/slam --out")
+    sp.add_argument("--imu", required=True,
+                    help=".npz with gyro (N,3), accel (N,3) raw specific force, dt (N,), "
+                    "interval (N,) mapping each sample to frame interval i (frames i -> i+1)")
+    sp.add_argument("--g", type=float, default=9.81, help="gravity magnitude (m/s^2)")
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_vialign)
 
     for name in _UNPORTED_COMMANDS:
         sp = sub.add_parser(name, help="not yet ported")

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,12 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def as_f32(a, device=None) -> torch.Tensor:
+    """``a`` (a tensor, or an array or list, copied: PyTorch takes no
+    read-only array) as a float32 tensor on ``device``, resolved by
+    ``resolve_device``."""
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(np.array(a, dtype=np.float32))
+    return a.to(device=resolve_device(device), dtype=torch.float32)

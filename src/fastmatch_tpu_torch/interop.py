@@ -4,7 +4,8 @@ The port never imports the JAX package; these helpers take the plain numpy
 arrays (or any object with the same field names) that the JAX side hands
 out and build the port's containers, so both packages can run on identical
 inputs: descriptors, a bundle-adjustment problem, a reconstruction's map
-state, the device tracker's state and the configuration dataclasses.
+state, the device tracker's and the VO scan engine's states, IMU
+preintegrations and the configuration dataclasses.
 
 Every constructor here takes ``device=None`` and resolves it as every
 entry point of the port does (``core.device.resolve_device``): the card
@@ -24,11 +25,17 @@ from fastmatch_tpu_torch.core.containers import (BinaryDescriptors, Descriptors,
                                                  descriptors_from_numpy, pad_to_capacity)
 from fastmatch_tpu_torch.core.device import resolve_device
 from fastmatch_tpu_torch.core.lie import SE3, Sim3
+from fastmatch_tpu_torch.dense.stereo import StereoConfig
+from fastmatch_tpu_torch.features.klt import KLTConfig
 from fastmatch_tpu_torch.features.sift import SIFTConfig
 from fastmatch_tpu_torch.pipeline import config as _config
 from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
 from fastmatch_tpu_torch.pipeline.slam import SlamResult
+from fastmatch_tpu_torch.pipeline.stereo_vo import StereoVOConfig
 from fastmatch_tpu_torch.pipeline.tracker import TrackerStatic, TrackState
+from fastmatch_tpu_torch.pipeline.vo import VOConfig
+from fastmatch_tpu_torch.pipeline.vo_scan import VOScanState, VOScanStatic
+from fastmatch_tpu_torch.sensors.imu import ImuPreintegration
 from fastmatch_tpu_torch.posegraph.pgo import PoseGraph
 from fastmatch_tpu_torch.posegraph.sim3 import Sim3Graph
 
@@ -38,7 +45,9 @@ __all__ = [
     "config_from", "reconstruction_from_numpy",
     "reconstruction_to_numpy", "pose_graph_from_numpy", "sim3_graph_from_numpy",
     "slam_state_from_numpy", "slam_state_to_numpy", "track_state_from_numpy",
-    "track_state_to_numpy", "tracker_static_from",
+    "track_state_to_numpy", "tracker_static_from", "klt_config_from", "vo_config_from",
+    "stereo_config_from", "stereo_vo_config_from", "vo_scan_static_from",
+    "vo_scan_state_from_numpy", "vo_scan_state_to_numpy", "imu_preintegration_from_numpy",
 ]
 
 # Map state of a Reconstruction: arrays and counters.
@@ -235,3 +244,83 @@ def tracker_static_from(other) -> TrackerStatic:
     package's TrackerStatic, or a dict with its field names)."""
     return TrackerStatic(**{f.name: _field(other, f.name)
                             for f in dataclasses.fields(TrackerStatic)})
+
+
+# Configurations of the small-baseline front end: a nested field of one of
+# these classes is rebuilt as the port's class of the same name.
+_NESTED = {"klt": KLTConfig, "stereo": StereoConfig}
+
+
+def _config_of(cls, other):
+    """``cls`` (a dataclass or NamedTuple of the port) holding the values of
+    ``other``, any object or dict with the JAX package's field names."""
+    names = cls._fields if hasattr(cls, "_fields") else [f.name for f in dataclasses.fields(cls)]
+    return cls(**{n: _config_of(_NESTED[n], _field(other, n)) if n in _NESTED
+                  else _field(other, n) for n in names})
+
+
+def klt_config_from(other) -> KLTConfig:
+    """The port's KLTConfig with the values of the JAX package's."""
+    return _config_of(KLTConfig, other)
+
+
+def stereo_config_from(other) -> StereoConfig:
+    """The port's StereoConfig with the values of the JAX package's."""
+    return _config_of(StereoConfig, other)
+
+
+def vo_config_from(other) -> VOConfig:
+    """The port's VOConfig (its KLTConfig included) with the values of the
+    JAX package's."""
+    return _config_of(VOConfig, other)
+
+
+def stereo_vo_config_from(other) -> StereoVOConfig:
+    """The port's StereoVOConfig (KLT and stereo configs included) with the
+    values of the JAX package's."""
+    return _config_of(StereoVOConfig, other)
+
+
+def vo_scan_static_from(other) -> VOScanStatic:
+    """The port's VOScanStatic with the values of the JAX package's."""
+    return _config_of(VOScanStatic, other)
+
+
+# VOScanState fields by dtype (the rest are float32; prev_pyr is a tuple).
+_SCAN_BOOL = ("alive", "pose_mask", "pt_mask", "obs_mask")
+_SCAN_INT = ("lid", "first_frame", "obs_cam", "obs_pt", "n_points", "n_obs", "n_kfs",
+             "last_ba_kf")
+
+
+def vo_scan_state_to_numpy(state) -> dict:
+    """A VO scan state (either package's VOScanState, or a dict with its
+    field names) as a dict of numpy arrays, the counters 0-dim and
+    ``prev_pyr`` a list of level arrays."""
+    def host(v):
+        return v.cpu().numpy().copy() if isinstance(v, torch.Tensor) else np.array(v)
+
+    out = {name: host(_field(state, name)) for name in VOScanState._fields
+           if name != "prev_pyr"}
+    out["prev_pyr"] = [host(level) for level in _field(state, "prev_pyr")]
+    return out
+
+
+def vo_scan_state_from_numpy(state, device=None) -> VOScanState:
+    """The port's VOScanState on ``device`` from ``vo_scan_state_to_numpy``'s
+    dict (or any object with VOScanState's field names)."""
+    def kind(name):
+        return (torch.bool if name in _SCAN_BOOL else
+                torch.int32 if name in _SCAN_INT else torch.float32)
+
+    fields = {name: _t(_field(state, name), device, kind(name))
+              for name in VOScanState._fields if name != "prev_pyr"}
+    fields["prev_pyr"] = tuple(_t(level, device, torch.float32).contiguous()
+                               for level in _field(state, "prev_pyr"))
+    return VOScanState(**fields)
+
+
+def imu_preintegration_from_numpy(pre, device=None) -> ImuPreintegration:
+    """The port's ImuPreintegration (float32, leading batch axes kept) from
+    the JAX package's arrays or a dict with its field names."""
+    return ImuPreintegration(**{name: _t(_field(pre, name), device, torch.float32)
+                                for name in ImuPreintegration._fields})

@@ -235,17 +235,12 @@ def test_info_and_config(tmp_path):
     (["reconstruct", "d", "--selfcal", "2"], 4),
     (["reconstruct", "d", "--gps", "g.npz"], 4),
     (["reconstruct", "d", "--checkpoint", "ck"], 4),
-    (["reconstruct", "d", "--export-ply", "p.ply"], 4),
-    (["reconstruct", "d", "--export-colmap", "c"], 4),
-    (["reconstruct", "d", "--export-kitti", "k.txt"], 4),
     (["reconstruct", "d", "--mode", "global"], 4),
     (["slam", "d", "--mesh", "bank=4"], 9),
     (["slam", "d", "--resume", "ck"], 9),
     (["slam", "d", "--plot", "p.png"], 4),
     (["slam", "d", "--checkpoint", "ck"], 4),
     (["evaluate", "synth", "--plot-dir", "p"], 4),
-    (["vo", "d", "--focal", "500"], 5),
-    (["stereo", "l.png", "r.png"], 6),
     (["locate", "m", "d"], 8),
 ])
 def test_unported_options_raise(argv, item):

@@ -5,7 +5,10 @@ Runs ``reconstruct(images=...)`` of the smoke scene (``chip_smoke.SMOKE_SCENE``,
 ``slam`` on the config-4 scene as ``chip_smoke.config4_slam`` runs them, or
 with ``--path config4-device`` SIFT and the device engine ``slam_device``
 on the whole 120-frame out-and-back orbit (``MapConfig.max_frames`` 128),
-as ``chip_smoke.config4_device_slam`` runs it,
+as ``chip_smoke.config4_device_slam`` runs it, or with ``--path vo`` /
+``vo-scan`` the host / scan KLT visual odometry engine on the VO phase's 50
+frames (``chip_smoke.render_vo_scene``, default ``VOConfig``), as
+``chip_smoke.vo_paths`` runs it,
 three times on ``cuda``: once to warm up
 (kernel builds, cuBLAS/cuSOLVER handles, the caching allocator), once timed,
 and once under ``torch.profiler`` tracing the CUDA activity (kernels and
@@ -18,6 +21,7 @@ JSON line and writes the same to ``chiprun_out/profile_<path>.json``:
   run;
 - device busy seconds in the profiled run (the union of all kernel and
   memcpy intervals) and the idle share of the timed and the profiled wall;
+  device operations (kernels and copies) in all and a frame;
 - device time, launch count and mean microseconds per launch of the top
   kernels by device time, of each of the port's own CUDA kernels (each
   template instantiation apart), and summed per TPU kernel (K1-K5);
@@ -25,7 +29,8 @@ JSON line and writes the same to ``chiprun_out/profile_<path>.json``:
   profiled run records each ``match_pair_fused`` call's shape in order and
   pairs the i-th with the i-th K2 tile kernel on the device's timeline.
 
-    python tools/profile_main_path.py [--path config3|config4|config4-device] [--frames N]
+    python tools/profile_main_path.py [--path config3|config4|config4-device|vo|vo-scan]
+        [--frames N]
         [--top K]
 """
 
@@ -68,17 +73,19 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import (kernel_instance_name, kernel_short_name, nvidia_smi_line,
-                            render_config4_scene, render_smoke_scene)
+                            render_config4_scene, render_smoke_scene, render_vo_scene)
     from fastmatch_tpu_torch.core.camera import Pinhole
     from fastmatch_tpu_torch.kernels import _build
     from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
     from fastmatch_tpu_torch.pipeline.reconstruct import detect_features, reconstruct
     from fastmatch_tpu_torch.pipeline.slam import SlamConfig, slam
     from fastmatch_tpu_torch.pipeline.slam_device import slam_device
+    from fastmatch_tpu_torch.pipeline.vo import VOConfig, visual_odometry
+    from fastmatch_tpu_torch.pipeline.vo_scan import visual_odometry_scan
     from fastmatch_tpu_torch.utils.evaluation import ate_rmse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("config3", "config4", "config4-device"),
+    ap.add_argument("--path", choices=("config3", "config4", "config4-device", "vo", "vo-scan"),
                     default="config3")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--top", type=int, default=15)
@@ -90,6 +97,8 @@ def main(argv=None) -> int:
     _build.build_all()
     if args.path == "config3":
         scene, views = render_smoke_scene(args.frames)
+    elif args.path.startswith("vo"):
+        scene, views, _ = render_vo_scene(args.frames)
     else:
         frames = args.frames or (120 if args.path == "config4-device" else None)
         scene, views = render_config4_scene(frames)
@@ -100,6 +109,10 @@ def main(argv=None) -> int:
         stage), the input frame of each of its frames)."""
         if args.path == "config3":
             rec = reconstruct(None, cam, PipelineConfig(), images=views, device="cuda")
+            return rec, np.arange(rec.n_frames)
+        if args.path.startswith("vo"):
+            engine = visual_odometry_scan if args.path == "vo-scan" else visual_odometry
+            rec = engine(views, cam, PipelineConfig(), VOConfig(), device="cuda")
             return rec, np.arange(rec.n_frames)
         cfg = PipelineConfig(map=MapConfig(
             max_frames=max(64, 1 << (len(views) - 1).bit_length())))
@@ -184,6 +197,7 @@ def main(argv=None) -> int:
         device_idle_share=1.0 - busy_s / wall_plain,
         device_idle_share_profiled=1.0 - busy_s / wall,
         kernel_launches=sum(v[1] for v in by_name.values()),
+        device_operations_per_frame=sum(v[1] for v in by_name.values()) / n,
         ate=float(ate_rmse(rec.camera_centers(), gt)),
         top_kernels=[row(k, *v) for k, v in top], port_kernels=port,
         port_kernels_total=per_kernel, k2_tiles_by_shape=k2_by_shape,
