@@ -75,7 +75,17 @@ Phases, in order; any failure exits nonzero before the result line:
    bit-identical, the stereo run's metric scale, K3 ``1 + levels`` launches
    a tracked frame, K4 and K5 launched, K1 and K2 not, and card against CPU
    for ``track_pair``, ``stereo_disparity``, ``densify`` and ``vialign``;
-   then the grouped BA and the 5-point solver on the card.
+   then the grouped BA and the 5-point solver on the card;
+11. the saved map's product surface (``map_services``) over the 120-frame
+   ``slam_device`` map of phase 8: checkpoints and a bit-identical resume
+   from ``track.pt``, 12 held-out rendered views through ``localize`` and
+   through ``serve`` over HTTP (sequential and 4 client threads), ``locate --retrieval 4`` through the CLI, ``merge_maps`` of
+   two ``slam_device`` sessions, and the city: the map planted in a
+   4,000,000-row bank (BASELINE.json config 5's retrieval leg), its IVF
+   index built twice, both search routes, 4 views served from the IVF
+   index, K2 at 2048 x 4,000,000 and K4 at k-means' shape against their
+   plain versions, and the IVF agreement at 262,144 rows against the JAX
+   package's (``tools/jax_city_reference.py``).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2147,7 +2157,9 @@ def config4_device_slam(scene56, views56, feats56):
     (recorded: whether bitwise there too), ``slam_chunked`` and
     ``slam_scan`` bit-identical; K2 at least 3 launches a tracked frame, K3
     one a frame in ``slam_scan_images`` and none in the feature-driven
-    engines, K4 and K5 launched, K1 not."""
+    engines, K4 and K5 launched, K1 not. Returns (the first 120-frame
+    run's launches, stats, and that run's scene, features and result: the
+    map of ``map_services``)."""
     import dataclasses
     import warnings
 
@@ -2283,7 +2295,8 @@ def config4_device_slam(scene56, views56, feats56):
         if not parity[k]]
     if fails:
         raise AssertionError(f"config-4 device SLAM: {fails}")
-    return dev120["launches"], stats
+    return dev120["launches"], stats, dict(scene=scene120, feats=feats120,
+                                           out=runs["device_120"])
 
 
 # -- phase 9: the command-line interface ------------------------------------------
@@ -2986,6 +2999,824 @@ def _five_point_samples(x0, x1, inliers, thr, n_hyp):
     return out
 
 
+# -- phase 11: the saved map's product surface ----------------------------------
+
+# Held-out views: the orbit's midpoints between keyframes k and k + 1.
+HELD_OUT_KEYFRAMES = tuple(range(4, 120, 10))   # 4, 14, ..., 114
+LOCATE_ROT_DEG = 1.0      # pose gates after the map's sim(3) alignment (ATE's)
+LOCATE_CENTER = 0.05      # scene units
+LOCATE_MIN_OK = 10        # of the 12 views
+RESUME_SNAPSHOT_FID = 28  # save_track_state after this frame id of the 56-frame run
+# Merge: sessions of frames 0-69 and 50-119, B moved by a known Sim(3).
+MERGE_SESSIONS = ((0, 70), (50, 120))
+MERGE_SIM3 = dict(scale=1.7, yaw_deg=30.0, t=(0.5, -0.2, 0.8))
+MERGE_SCALE_TOL = 0.01
+MERGE_RMSE = 0.05         # scene units
+# BASELINE.json config 5's retrieval leg: 10,000 keyframes x 400 descriptors.
+CITY = dict(n_kf=10_000, per_kf=400, seed=0, radius=(50.0, 100.0))
+CITY_PEAK_BYTES = 40e9
+CITY_SERVED = 4
+# IVF parity: the generator at 262,144 rows, match_pair_ann_big(budget 65,536,
+# 8 probes) against exact search, both with the cross-check.
+CITY_PARITY = dict(n_kf=1024, per_kf=256, seed=1, budget=65_536, n_probe=8)
+IVF_PARITY_TOL = 0.03
+# The JAX package's figure on CITY_PARITY's inputs, on a CPU:
+# ``python tools/jax_city_reference.py`` (k-means from PRNGKey(0), 512
+# clusters: build_map_index's default rule at 262,144 rows). Of the 2048
+# queries (768 live: the rows of 3 keyframes x 256, shuffled)
+# exact search validates 757, the shortlist 243, and those agree on every
+# one.
+JAX_CITY = dict(rows=262144, n_clusters=512, seed=1, key=0, budget=65536, n_probe=8,
+                agreement=1.0, co_valid=243, exact_valid=757, ivf_valid=243)
+
+
+def make_city(n_kf, per_kf, rng):
+    """Synthetic city bank with loop-closure structure (the generator of
+    ``benchmarks/city_bench.py``'s ``_make_city``, its normal draws made in
+    float32): a codebook of ~16 rows a word, keyframe k drawing its words
+    from a sliding window of it (consecutive keyframes share words), rows
+    |word + 0.3 N(0, 1)| normalized. Returns (bank (M, 128) grouped per
+    keyframe, query (2048, 128), qmask, j): the query re-observes keyframes
+    j..j+2 (a revisit of one place)."""
+    import numpy as np
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    M = n_kf * per_kf
+    n_words = max(4096, M // 16)
+    wpk = n_words // n_kf
+    words = unit(np.abs(rng.standard_normal((n_words, 128), dtype=np.float32)))
+    chunks = []
+    kf_per_chunk = max(1, (1 << 20) // per_kf)
+    for k0 in range(0, n_kf, kf_per_chunk):
+        ks = np.arange(k0, min(k0 + kf_per_chunk, n_kf))
+        base = np.repeat(ks * wpk, per_kf)
+        wid = (base + rng.integers(0, max(3 * wpk, 1), base.shape[0])) % n_words
+        w = words[wid]
+        chunks.append(unit(np.abs(w + 0.3 * rng.standard_normal(w.shape, dtype=np.float32))))
+    bank = np.concatenate(chunks)
+    j = int(rng.integers(0, n_kf - 3))
+    src = np.arange(j * per_kf, (j + 3) * per_kf)
+    rng.shuffle(src)
+    src = src[:min(2048, src.shape[0])]
+    q = np.zeros((2048, 128), np.float32)
+    q[:src.shape[0]] = unit(np.abs(bank[src] + 0.05 * rng.standard_normal(
+        (src.shape[0], 128), dtype=np.float32)))
+    qmask = np.zeros(2048, bool)
+    qmask[:src.shape[0]] = True
+    return bank, q, qmask, j
+
+
+def shortlist_agreement(exact, ivf):
+    """(agreement, co-valid count): the fraction of queries valid in both
+    searches whose matches agree (``benchmarks/city_bench.py``'s figure)."""
+    both = exact.valid & ivf.valid
+    n = int(both.sum())
+    agree = float((exact.idx[both] == ivf.idx[both]).float().mean()) if n else float("nan")
+    return agree, n
+
+
+def render_held_out_views():
+    """(scene, frames) of the held-out views: the config-4 orbit's 400
+    landmarks with their appearance (the same draws as
+    ``render_config4_scene``) seen from the midpoints of the 120-frame
+    orbit between keyframes k and k + 1, k in HELD_OUT_KEYFRAMES."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from synth import render_scene_views
+
+    p = CONFIG4_SCENE
+    rng = np.random.default_rng(p["seed"])
+    points = rng.uniform(-2.0, 2.0, size=(p["n_points"], 3))
+    a = config4_angles(DEVICE_SLAM_FRAMES)
+    mids = np.array([(a[k] + a[k + 1]) / 2 for k in HELD_OUT_KEYFRAMES])
+    scene = OrbitScene(points, mids, p["radius"], p["image_size"])
+    return scene, render_scene_views(scene, rng, image_size=p["image_size"])
+
+
+def _rot_deg(R):
+    import numpy as np
+
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))))
+
+
+def _map_alignment(rec, frame_seq, scene):
+    """The map's alignment to ground truth: ``s``, ``R``, ``t`` of ATE's
+    ``align_umeyama`` of the map's camera centres onto the scene's; and
+    ``R_orient``, the world rotation that best carries the map's keyframe
+    orientations onto the scene's (the projection onto SO(3) of the sum of
+    R_gt_k^T R_map_k), with the median keyframe rotation error under each."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.utils.evaluation import align_umeyama
+
+    seq = np.asarray(frame_seq)
+    gt = -np.einsum("fji,fj->fi", scene.R[seq], scene.t[seq])
+    s, R, t = align_umeyama(torch.from_numpy(rec.camera_centers().astype(np.float32)),
+                            torch.from_numpy(gt.astype(np.float32)))
+    R = R.numpy().astype(np.float64)
+    Rm = rec.R[:len(seq)].astype(np.float64)
+    Rg = scene.R[seq].astype(np.float64)
+    U, _, Vt = np.linalg.svd(np.einsum("kji,kjl->il", Rg, Rm))
+    Ro = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    return dict(s=float(s), R=R, t=t.numpy().astype(np.float64), R_orient=Ro,
+                keyframe_rot_err_median=float(np.median(
+                    [_rot_deg(a @ R.T @ b.T) for a, b in zip(Rm, Rg)])),
+                keyframe_rot_err_orient_median=float(np.median(
+                    [_rot_deg(a @ Ro.T @ b.T) for a, b in zip(Rm, Rg)])))
+
+
+def _view_errors(align, R, t, R_gt, t_gt):
+    """(centre error in scene units, rotation error in degrees under the
+    centre alignment, and under ``R_orient``) of a pose in the map's frame
+    against ground truth."""
+    import numpy as np
+
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    c = align["s"] * align["R"] @ (-R.T @ t) + align["t"]
+    c_gt = -R_gt.T @ t_gt
+    return (float(np.linalg.norm(c - c_gt)), _rot_deg(R @ align["R"].T @ R_gt.T),
+            _rot_deg(R @ align["R_orient"].T @ R_gt.T))
+
+
+def _within(errors):
+    """A localized view within the gates: (centre error, rotation error
+    under the map's ATE alignment, under ``R_orient``) from
+    ``_view_errors``, None for a view that did not localize. The gates read
+    the first two."""
+    return errors is not None and errors[0] < LOCATE_CENTER and errors[1] < LOCATE_ROT_DEG
+
+
+def _reset_launches(wrappers):
+    import torch
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _read_launches(wrappers):
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def _device_time(call, names, per_call, n):
+    """Device us per call by ``torch.profiler`` over ``n`` calls (each
+    ``per_call`` launches of kernels called ``names``), recorded only when
+    the profiler saw every launch (late in this long process it drops
+    some: then None, with the count it saw and the mean us of the launches
+    it saw), and the ms per call by CUDA events around each call alone
+    (synchronized, so launch gaps inside a call are in it)."""
+    import statistics
+
+    import torch
+
+    us, seen = device_us(call, names, n=n)
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return dict(device_us_per_call=us * per_call if seen == per_call * n else None,
+                device_us_per_launch_seen=us, profiled_launches=seen,
+                expected_launches=per_call * n, event_ms_per_call=statistics.median(times))
+
+
+def _slabbed_k2_plain(a, b, b2m, a2m, slab=128):
+    """``distance_topk_plain`` of (N, D) queries against an (M, D) bank in
+    query slabs of ``slab`` rows: the row outputs slab by slab, the column
+    argmin as the running minimum of the kernels' 64-bit column key
+    (``order_key``: the value, then the lowest row). Equal to the one-piece
+    plain version, in (slab, M) memory."""
+    import torch
+
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+
+    rows = []
+    best = None
+    for s0 in range(0, a.shape[0], slab):
+        a_s, a2_s = a[s0:s0 + slab], a2m[s0:s0 + slab]
+        neg2 = -2.0 * (a_s @ b.T)
+        v1, i1, v2 = k2.plain_top2(neg2 + b2m[None, :])
+        rows.append((i1.to(torch.int32), torch.clamp(v1 + a2_s, min=0.0),
+                     torch.clamp(v2 + a2_s, min=0.0)))
+        r = torch.arange(s0, s0 + a_s.shape[0], device=a.device)[:, None]
+        key = k2.order_key(neg2 + a2_s[:, None], r.expand_as(neg2)).min(dim=0).values
+        best = key if best is None else torch.minimum(best, key)
+        del neg2
+    i1, d1, d2 = (torch.cat(x) for x in zip(*rows))
+    return i1, d1, d2, (best & 0xFFFFFFFF).to(torch.int32)
+
+
+def _k2_at(name, a, b, mask_a, mask_b, check=True, product_slab=None):
+    """K2 at one of the path's shapes: raw outputs against the plain
+    version (in query slabs), wrapper ms, device us per call, the product
+    alone (``product_only_ms``; over bank slabs of ``product_slab`` rows
+    into one buffer where the whole (N, M) product would not fit), and the
+    bound by fp32 operations."""
+    import torch
+
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.matching.matcher import BIG
+
+    a, b = a.contiguous(), b.contiguous()
+    a2m = torch.where(mask_a, (a * a).sum(-1), BIG).contiguous()
+    b2m = torch.where(mask_b, (b * b).sum(-1), BIG).contiguous()
+    n, m = a.shape[0], b.shape[0]
+    call = lambda: k2.distance_topk(a, b, b2m, a2m)  # noqa: E731
+    d = dict(name=name, shape=[n, m, a.shape[1]])
+    if check:
+        ki1, kd1, kd2, knnb = call()
+        pi1, pd1, pd2, pnnb = _slabbed_k2_plain(a, b, b2m, a2m)
+        d.update(idx1_equal=bool(torch.equal(ki1, pi1)),
+                 nnb_equal=bool(torch.equal(knnb[mask_b], pnnb[mask_b])),
+                 max_abs_err=max((kd1 - pd1).abs().max().item(), (kd2 - pd2).abs().max().item()))
+    reps = 3 if n * m > 1e9 else 10
+    d["ms"] = cuda_ms(call, batches=3, reps=reps)
+    d.update(_device_time(call, K2_KERNELS, 2, 20 if n * m > 1e9 else 50))
+    if product_slab is None:
+        d["product_only_ms"] = cuda_ms(lambda: a @ b.T, batches=3, reps=reps)
+    else:
+        buf = a.new_empty((n, product_slab))
+        slabs = [b[s:s + product_slab] for s in range(0, m, product_slab)]
+
+        def product():
+            for bs in slabs:
+                torch.matmul(a, bs.T, out=buf[:, :bs.shape[0]])
+
+        d["product_only_ms"] = cuda_ms(product, batches=3, reps=1)
+    d["bound_ms"], d["bound_by"] = bound(4 * (n * 128 + m * 128 + n + m) + 4 * (3 * n + m),
+                                         2.0 * n * m * a.shape[1])
+    log("map_services K2", json.dumps(d))
+    return d
+
+
+def _k4_kmeans_shape(data, assign, k):
+    """K4 at k-means' cluster-sum shape (the bank's rows sorted by cluster,
+    K segments): against its plain version (float sums in another order:
+    the largest error relative to the largest sum), wrapper ms, device us,
+    and ``torch.segment_reduce`` as the library time."""
+    import torch
+
+    from fastmatch_tpu_torch.kernels import segment_ops as k4
+
+    keys = assign.to(torch.int32)
+    order = torch.argsort(keys, stable=True)
+    sk = keys[order].contiguous()
+    vals = data[order].contiguous()
+    off = k4.segment_offsets(sk, k)
+    max_len = int(k4.segment_lengths(off).max())
+    got = k4.sorted_segment_sum(vals, sk, k, offsets=off, max_len=max_len)
+    ref = k4.segment_sum_plain(vals, sk, k)
+    call = lambda: k4.sorted_segment_sum(vals, sk, k, offsets=off, max_len=max_len)  # noqa: E731
+    lengths = k4.segment_lengths(off)
+    d = dict(rows=int(vals.shape[0]), cols=int(vals.shape[1]), segments=k,
+             longest_segment=max_len,
+             max_rel_err=((got - ref).abs().max() / ref.abs().max()).item(),
+             bit_identical_rerun=bool(torch.equal(call(), got)),
+             ms=cuda_ms(call, batches=3, reps=5),
+             plain_ms=cuda_ms(lambda: k4.segment_sum_plain(vals, sk, k), batches=3, reps=5),
+             library_ms=cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths),
+                                batches=3, reps=5))
+    d.update(_device_time(call, {"segsum_short", "segsum_long"}, 1, 50))
+    d["bound_ms"], d["bound_by"] = bound(4 * (vals.numel() + k + 1 + k * vals.shape[1]),
+                                         float(vals.numel()))
+    log("map_services K4", json.dumps(d))
+    return d
+
+
+def _track_saver(fid, path):
+    """``SlamHooks`` that save the run with ``save_track_state`` after frame
+    id ``fid``."""
+    from fastmatch_tpu_torch.pipeline.checkpoint import save_track_state
+    from fastmatch_tpu_torch.pipeline.slam_device import SlamHooks
+
+    class Saver(SlamHooks):
+        def after_frame(self, state, f, fi, out, book):
+            if f == fid:
+                save_track_state(state, book, out, path)
+
+    return Saver()
+
+
+def _checkpoints(rec120, cam, feats56, tmp):
+    """save_map/restore_map of the 120-frame map, the config-hash guard, and
+    the 56-frame slam_device run saved after frame RESUME_SNAPSHOT_FID and
+    resumed from its track.pt."""
+    import dataclasses
+
+    import numpy as np
+
+    from fastmatch_tpu_torch.pipeline.checkpoint import (restore_map, restore_track_state,
+                                                         save_map)
+    from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
+    from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
+    from fastmatch_tpu_torch.pipeline.slam import SlamConfig
+    from fastmatch_tpu_torch.pipeline.slam_device import drive_slam
+
+    names = ("R", "t", "pose_mask", "points", "pt_mask", "pt_desc", "obs_cam", "obs_pt",
+             "obs_uv", "obs_mask")
+    out = {}
+    t0 = time.perf_counter()
+    save_map(rec120, os.path.join(tmp, "map120"))
+    out["save_map_seconds"] = time.perf_counter() - t0
+    out["map_pt_bytes"] = os.path.getsize(os.path.join(tmp, "map120", "map.pt"))
+    t0 = time.perf_counter()
+    back = restore_map(Reconstruction(cfg=rec120.cfg, camera=cam), os.path.join(tmp, "map120"))
+    out["restore_map_seconds"] = time.perf_counter() - t0
+    out["roundtrip_equal"] = (all(np.array_equal(getattr(back, k), getattr(rec120, k))
+                                  for k in names)
+                              and (back.n_frames, back.n_points, back.n_obs)
+                              == (rec120.n_frames, rec120.n_points, rec120.n_obs))
+    other = dataclasses.replace(rec120.cfg, ba=dataclasses.replace(rec120.cfg.ba, interval=3))
+    try:
+        restore_map(Reconstruction(cfg=other, camera=cam), os.path.join(tmp, "map120"))
+        out["mismatch_raises"] = False
+    except ValueError:
+        out["mismatch_raises"] = True
+    cfg56, scfg = PipelineConfig(map=MapConfig(max_frames=64)), SlamConfig()
+    track = os.path.join(tmp, "track56")
+    t0 = time.perf_counter()
+    full = drive_slam(feats56, cam, cfg56, scfg, hooks=_track_saver(RESUME_SNAPSHOT_FID, track),
+                      device=DEV)
+    out["uninterrupted_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = drive_slam(feats56, cam, cfg56, scfg, resume=restore_track_state(track, DEV),
+                         device=DEV)
+    out["resumed_seconds"] = time.perf_counter() - t0
+    out["resume_bit_identical"] = (
+        _same_map(resumed, full, names)
+        and [e[:2] for e in resumed.loop_edges] == [e[:2] for e in full.loop_edges]
+        and all(np.array_equal(x[2], y[2]) and np.array_equal(x[3], y[3]) for x, y in
+                zip(resumed.odo_edges + resumed.loop_edges, full.odo_edges + full.loop_edges))
+        and resumed.pgo_runs == full.pgo_runs)
+    out.update(frames_tracked=full.rec.n_frames, loop_edges=len(full.loop_edges),
+               pgo_runs=full.pgo_runs)
+    log("map_services checkpoints", json.dumps(out))
+    return out
+
+
+def _http(port, path, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = json.loads(r.read())
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _npz_body(xy, d, m):
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, xy=xy, desc=d, mask=m)
+    return buf.getvalue()
+
+
+def _serve_views(views, wrappers, service=None, ckpt=None, cam=None, concurrent=True):
+    """Serve a map on port 0 in a thread: ``serve(ckpt, cam)`` itself (the
+    index built from the checkpoint, the warmup, then the socket), or a
+    given ``service`` through ``warmup`` and ``make_server``. Then /healthz,
+    each view POSTed once (answers against ``service.query``), and with
+    ``concurrent`` 4 client threads x 3 requests (answers against the
+    sequential ones). Returns stats, K2's launches when the socket bound
+    among them; the server is shut down."""
+    import statistics
+    import threading
+
+    from fastmatch_tpu_torch.pipeline.serve import make_server, serve
+
+    _reset_launches(wrappers)
+    t0 = time.perf_counter()
+    if ckpt is None:
+        service.warmup()
+        st = dict(k2_launches_before_bind=wrappers["distance_topk"].launches)
+        httpd = make_server(service, port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+    else:
+        ready, bound = threading.Event(), {}
+
+        def on_bind(server):
+            bound.update(server=server, k2=wrappers["distance_topk"].launches)
+
+        thread = threading.Thread(target=serve, args=(ckpt, cam), daemon=True, kwargs=dict(
+            port=0, ready_event=ready, device=DEV, on_bind=on_bind))
+        thread.start()
+        if not ready.wait(timeout=600):
+            raise AssertionError("serve() did not bind within 600 s")
+        httpd = bound["server"]
+        service = httpd.service
+        st = dict(k2_launches_before_bind=bound["k2"])
+    st["start_seconds"] = time.perf_counter() - t0
+    try:
+        direct = [service.query(*v) for v in views]
+        st["healthz"], _ = _http(httpd.server_port, "/healthz")
+        answers, ms = [], []
+        for v in views:
+            a, t = _http(httpd.server_port, "/localize", _npz_body(*v))
+            answers.append(a)
+            ms.append(t)
+        st["http_equals_direct"] = all(a["R"] == d["R"] and a["t"] == d["t"]
+                                       and a["ok"] == d["ok"] for a, d in zip(answers, direct))
+        st["request_ms_median"], st["request_ms_max"] = statistics.median(ms), max(ms)
+        st["service_ms_median"] = statistics.median(a["ms"] for a in answers)
+        st["answered"] = len(answers)
+        if concurrent:
+            got, errors = {}, []
+
+            def client(c):
+                for r in range(3):
+                    k = (3 * c + r) % len(views)
+                    try:
+                        got[(c, r)] = (k, _http(httpd.server_port, "/localize",
+                                                _npz_body(*views[k]))[0])
+                    except Exception as e:  # noqa: BLE001 (recorded, then gated)
+                        errors.append(repr(e))
+
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            st["concurrent_errors"] = errors
+            st["concurrent_equal_sequential"] = (len(got) == 12 and not errors and all(
+                a["R"] == direct[k]["R"] and a["t"] == direct[k]["t"] for k, a in got.values()))
+        st["queries_served"] = _http(httpd.server_port, "/healthz")[0]["queries_served"]
+    finally:
+        httpd.shutdown()
+        if ckpt is None:
+            httpd.server_close()
+        thread.join(timeout=60)
+    st["answers"] = answers
+    return st
+
+
+def _city(rec, views_feats, scene_h, align, cam, wrappers):
+    """BASELINE.json config 5's retrieval leg over the 120-frame map planted
+    in a 4,000,000-row city bank; IVF parity at 262,144 rows."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.containers import Descriptors
+    from fastmatch_tpu_torch.matching.ann import build_index_sorted, match_pair_ann_big
+    from fastmatch_tpu_torch.matching.matcher import match_pair
+    from fastmatch_tpu_torch.pipeline.localize import (build_map_index, default_n_clusters,
+                                                       localize, match_to_map)
+    from fastmatch_tpu_torch.pipeline.serve import LocalizeService
+
+    dev = torch.device(DEV)
+    st = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(CITY["seed"])
+    bank, _, _, _ = make_city(CITY["n_kf"], CITY["per_kf"], rng)
+    M = bank.shape[0]
+    r = rng.uniform(*CITY["radius"], M)
+    u = rng.standard_normal((M, 3))
+    pts = (u / np.linalg.norm(u, axis=1, keepdims=True) * r[:, None]).astype(np.float32)
+    live = np.flatnonzero(rec.pt_mask)
+    rows = rng.choice(M, live.size, replace=False)
+    bank[rows] = rec.pt_desc[live]
+    pts[rows] = rec.points[live]
+    st["generate_seconds"] = time.perf_counter() - t0
+    bank_t, pts_t = torch.from_numpy(bank).to(dev), torch.from_numpy(pts).to(dev)
+    mask_t = torch.ones(M, dtype=torch.bool, device=dev)
+    del bank, pts
+    st.update(rows=M, planted=int(live.size), n_clusters=default_n_clusters(M))
+
+    builds = []
+    for _ in range(2):
+        _reset_launches(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        index = build_map_index(pts_t, bank_t, mask_t, device=DEV)
+        torch.cuda.synchronize()
+        builds.append((index, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+                       _read_launches(wrappers)))
+    (ia, sa, pa, la), (ib, sb, pb, _) = builds
+    fields = [(x.data, y.data) if isinstance(x, Descriptors) else (x, y)
+              for x, y in zip(ia.ivf, ib.ivf)]
+    st.update(index_build_seconds=[sa, sb], index_peak_bytes=max(pa, pb),
+              index_builds_bit_identical=all(bool(torch.equal(x, y)) for x, y in fields),
+              index_build_launches=la,
+              largest_cluster=int((ia.ivf.starts[1:] - ia.ivf.starts[:-1]).max()))
+    del ib, builds
+    exact = build_map_index(pts_t, bank_t, mask_t, ann_threshold=M + 1, device=DEV)
+    routes = {}
+    for name, index in (("ivf", ia), ("exact", exact)):
+        _reset_launches(wrappers)
+        oks, good, ms, matches = 0, 0, [], []
+        for k, (xy, d, m) in enumerate(views_feats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = localize(index, xy, d, m, cam)
+            ok = bool(res.ok)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            oks += ok
+            if ok:
+                good += _within(_view_errors(align, res.R.cpu().numpy(), res.t.cpu().numpy(),
+                                             scene_h.R[k], scene_h.t[k]))
+            matches.append(match_to_map(index, d, m))
+        routes[name] = dict(localized=oks, within_gates=good, ms_median=statistics.median(ms),
+                            ms_max=max(ms), launches=_read_launches(wrappers))
+        routes[name]["_m"] = matches
+    agree = [shortlist_agreement(e, i) for e, i in zip(routes["exact"].pop("_m"),
+                                                       routes["ivf"].pop("_m"))]
+    st["routes"] = routes
+    st["route_agreement"] = [a for a, _ in agree]
+    st["route_co_valid"] = [n for _, n in agree]
+    log("map_services city routes", json.dumps(st))
+
+    service = LocalizeService(ia, cam)
+    st["served"] = _serve_views(views_feats[:CITY_SERVED], wrappers, service=service,
+                                concurrent=False)
+    st["served"].pop("answers")
+    log("map_services city serve", json.dumps(st["served"]))
+
+    # K2 at the city's exact shape: 2048 queries x 4,000,000 rows.
+    xy, d, m = views_feats[0]
+    st["k2_city_exact"] = _k2_at("city_exact", torch.from_numpy(d).to(dev),
+                                 bank_t, torch.from_numpy(m).to(dev), mask_t,
+                                 product_slab=250_000)
+    # K4 at k-means' cluster-sum shape, with the index's final assignment.
+    st["k4_kmeans"] = _k4_kmeans_shape(ia.ivf.desc.data, ia.ivf.assign.long().clamp(
+        max=st["n_clusters"] - 1), st["n_clusters"])
+    del ia, exact, index, service, bank_t, pts_t
+    torch.cuda.empty_cache()
+
+    # IVF parity at 262,144 rows against the JAX package's figure.
+    p = CITY_PARITY
+    pbank, q, qmask, _ = make_city(p["n_kf"], p["per_kf"], np.random.default_rng(p["seed"]))
+    pb = Descriptors(torch.from_numpy(pbank).to(dev),
+                     torch.ones(pbank.shape[0], dtype=torch.bool, device=dev))
+    qd = Descriptors(torch.from_numpy(q).to(dev), torch.from_numpy(qmask).to(dev))
+    k = default_n_clusters(pbank.shape[0])
+    idx = build_index_sorted(pb, k, generator=torch.Generator(dev).manual_seed(0))
+    ex = match_pair(qd, pb, device=DEV)
+    iv = match_pair_ann_big(qd, idx, budget=p["budget"], n_probe=p["n_probe"], device=DEV)
+    a, n = shortlist_agreement(ex, iv)
+    st["ivf_parity"] = dict(rows=int(pbank.shape[0]), n_clusters=k, agreement=a, co_valid=n,
+                            exact_valid=int(ex.valid.sum()), ivf_valid=int(iv.valid.sum()),
+                            jax_cpu=JAX_CITY, tol=IVF_PARITY_TOL,
+                            exact_ms=cuda_ms(lambda: match_pair(qd, pb, device=DEV),
+                                             batches=3, reps=5),
+                            ivf_ms=cuda_ms(lambda: match_pair_ann_big(
+                                qd, idx, budget=p["budget"], n_probe=p["n_probe"], device=DEV),
+                                batches=3, reps=5))
+    log("map_services ivf parity", json.dumps(st["ivf_parity"]))
+    # K2 at the IVF compact bank's shape (2048 x budget) on its real rows.
+    sizes = (idx.starts[1:] - idx.starts[:-1])
+    st["k2_ivf_compact"] = _k2_at("ivf_compact", qd.data, pb.data[:p["budget"]], qd.mask,
+                                  pb.mask[:p["budget"]])
+    st["k2_ivf_compact"]["largest_cluster"] = int(sizes.max())
+    return st
+
+
+def map_services(map120, feats56):
+    """The life of a saved map on the card, at config 4's widths over the
+    120-frame ``slam_device`` map of ``config4_device_slam``:
+
+    - checkpoints: ``save_map``/``restore_map`` every array equal, a
+      mismatched config raising under ``strict_config=True``, and the
+      56-frame ``slam_device`` run saved by ``save_track_state`` after frame
+      id RESUME_SNAPSHOT_FID and resumed from it bit-identical;
+    - 12 held-out views (midpoints of the orbit, rendered, SIFT on the card)
+      through ``localize`` (exact route: K2): at least LOCATE_MIN_OK within
+      LOCATE_ROT_DEG and LOCATE_CENTER after the map's ATE alignment (the
+      rotation error after ``R_orient``, the keyframes' own orientation
+      alignment, is recorded beside it: the ATE alignment's rotation is fit
+      to centres on a near-planar arc);
+    - ``serve`` on the saved map, port 0, in a thread: K2 launched by the
+      warmup before the socket opens, /healthz, the 12 views' answers
+      equal to the direct ones (R and t bitwise), 4 client threads x 3
+      requests equal to the sequential answers, ms per request;
+    - ``locate --retrieval 4`` through the CLI on the saved map: at least as
+      many views within the gates as the flat route, minus one;
+    - ``merge_maps(refine=True)`` of two ``slam_device`` sessions (frames
+      0-69 and 50-119, B moved by MERGE_SIM3): the recovered scale within
+      MERGE_SCALE_TOL of the one the sessions' own alignments to ground
+      truth imply, ``align_rmse`` < MERGE_RMSE scene units, K2, K4 and K5
+      launched;
+    - the city (``_city``): the map planted in a 4,000,000-row bank, the
+      default IVF index (2048 clusters) built twice bit-identical under
+      CITY_PEAK_BYTES, the views through both routes, 4 of them served
+      from the IVF index, and the IVF agreement at 262,144 rows within
+      IVF_PARITY_TOL of the JAX package's (JAX_CITY).
+
+    Returns (launches summed over the phase's paths, stats)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
+    from fastmatch_tpu_torch.pipeline.georegister import apply_sim3
+    from fastmatch_tpu_torch.pipeline.localize import build_map_index, localize
+    from fastmatch_tpu_torch.pipeline.merge import merge_maps
+    from fastmatch_tpu_torch.pipeline.reconstruct import detect_features
+    from fastmatch_tpu_torch.pipeline.slam import SlamConfig
+    from fastmatch_tpu_torch.pipeline.slam_device import slam_device
+
+    wrappers = _kernel_wrappers()
+    scene120, feats120, out120 = map120["scene"], map120["feats"], map120["out"]
+    rec = out120.rec
+    cam = Pinhole.from_K(scene120.K)
+    tmp = os.path.join(ROOT, "chiprun_out", "map_services_tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    stats, launches, fails = {}, {k: 0 for k in wrappers}, []
+    secs = {}
+
+    def add(la):
+        for k, v in la.items():
+            launches[k] += v
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        _reset_launches(wrappers)
+        stats["checkpoints"] = ck = timed("checkpoints", _checkpoints, rec, cam, feats56, tmp)
+        add(_read_launches(wrappers))
+        if not (ck["roundtrip_equal"] and ck["mismatch_raises"] and ck["resume_bit_identical"]):
+            fails.append(f"checkpoints: {ck}")
+
+        # Held-out views through localize (exact route).
+        t0 = time.perf_counter()
+        scene_h, views_h = render_held_out_views()
+        _reset_launches(wrappers)
+        feats_h = detect_features(views_h, PipelineConfig(), DEV)
+        la = _read_launches(wrappers)
+        add(la)
+        secs["render_and_sift"] = time.perf_counter() - t0
+        align = _map_alignment(rec, out120.frame_seq, scene120)
+        index = build_map_index(rec.points, rec.pt_desc, rec.pt_mask, device=DEV)
+        _reset_launches(wrappers)
+        t0 = time.perf_counter()
+        flat = []
+        for k, (xy, d, m) in enumerate(feats_h):
+            r = localize(index, xy, d, m, cam)
+            ok = bool(r.ok)
+            e = (_view_errors(align, r.R.cpu().numpy(), r.t.cpu().numpy(), scene_h.R[k],
+                              scene_h.t[k]) if ok else None)
+            flat.append(dict(view=HELD_OUT_KEYFRAMES[k], ok=ok, n_matches=int(r.n_matches),
+                             n_inliers=int(r.n_inliers), errors=e, within=_within(e)))
+        secs["locate"] = time.perf_counter() - t0
+        la = _read_launches(wrappers)
+        add(la)
+        n_flat = sum(v["within"] for v in flat)
+        stats["locate"] = dict(index="ivf" if index.ivf is not None else "exact",
+                               bank_rows=int(index.bank.data.shape[0]),
+                               map_alignment={k: v for k, v in align.items()
+                                              if k in ("s", "keyframe_rot_err_median",
+                                                       "keyframe_rot_err_orient_median")},
+                               views=flat, within_gates=n_flat, launches=la)
+        log("map_services locate", json.dumps(stats["locate"]))
+        if n_flat < LOCATE_MIN_OK:
+            fails.append(f"locate: {n_flat}/12 views within {LOCATE_ROT_DEG} deg and "
+                         f"{LOCATE_CENTER}")
+        if la["distance_topk"] < len(feats_h):
+            fails.append(f"locate: K2 launches {la['distance_topk']}")
+
+        # The service over the same index.
+        views_q = [tuple(np.asarray(x) for x in f) for f in feats_h]
+        t0 = time.perf_counter()
+        sv = _serve_views(views_q, wrappers, ckpt=os.path.join(tmp, "map120"), cam=cam)
+        secs["serve"] = time.perf_counter() - t0
+        add(_read_launches(wrappers))
+        sv.pop("answers")
+        stats["serve"] = sv
+        log("map_services serve", json.dumps(sv))
+        if not (sv["k2_launches_before_bind"] > 0 and sv["http_equals_direct"]
+                and sv["concurrent_equal_sequential"] and sv["healthz"]["index"] == "exact"):
+            fails.append(f"serve: {sv}")
+
+        # locate --retrieval 4 through the CLI on the saved map.
+        t0 = time.perf_counter()
+        npz = os.path.join(tmp, "views.npz")
+        data = {"n_frames": len(feats_h), "image_size": np.array(CONFIG4_SCENE["image_size"])}
+        for i, (xy, d, m) in enumerate(feats_h):
+            data[f"xy_{i}"], data[f"desc_{i}"], data[f"mask_{i}"] = xy, d, m
+        np.savez(npz, **data)
+        _reset_launches(wrappers)
+        lines, _ = _cli(["locate", os.path.join(tmp, "map120"), npz, "--focal",
+                         str(float(scene120.K[0, 0])), "--retrieval", "4"])
+        la = _read_launches(wrappers)
+        add(la)
+        hier = []
+        for v in lines[:-1]:
+            k = v["frame"]
+            e = (_view_errors(align, v["R"], v["t"], scene_h.R[k], scene_h.t[k])
+                 if v["ok"] else None)
+            hier.append(dict(view=HELD_OUT_KEYFRAMES[k], ok=v["ok"], n_matches=v["n_matches"],
+                             errors=e, within=_within(e)))
+        n_hier = sum(v["within"] for v in hier)
+        secs["hierarchical"] = time.perf_counter() - t0
+        stats["hierarchical"] = dict(summary=lines[-1], views=hier, within_gates=n_hier,
+                                     launches=la)
+        log("map_services hierarchical", json.dumps(stats["hierarchical"]))
+        if n_hier < n_flat - 1 or la["distance_topk"] <= 0:
+            fails.append(f"hierarchical: {n_hier} within the gates against {n_flat} flat")
+
+        # Merge two sessions.
+        t0 = time.perf_counter()
+        cfgm = PipelineConfig(map=MapConfig(max_frames=128))
+        sessions = [slam_device(feats120[a:b], cam, cfgm, SlamConfig(), device=DEV)
+                    for a, b in MERGE_SESSIONS]
+        aligns = [_map_alignment(o.rec, [MERGE_SESSIONS[i][0] + f for f in o.frame_seq],
+                                 scene120) for i, o in enumerate(sessions)]
+        ms = MERGE_SIM3
+        th = np.radians(ms["yaw_deg"])
+        R0 = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+        rec_b = sessions[1].rec
+        apply_sim3(rec_b, ms["scale"], R0, np.array(ms["t"]))
+        secs["merge_sessions"] = time.perf_counter() - t0
+        _reset_launches(wrappers)
+        t0 = time.perf_counter()
+        merged, info = merge_maps(sessions[0].rec, rec_b, refine=True)
+        secs["merge"] = time.perf_counter() - t0
+        la = _read_launches(wrappers)
+        add(la)
+        want = aligns[1]["s"] / (aligns[0]["s"] * ms["scale"])
+        info.update(expected_scale=want, scale_rel_err=abs(info["scale"] / want - 1),
+                    align_rmse_scene=info["align_rmse"] * aligns[0]["s"],
+                    session_scales=[a["s"] for a in aligns], n_frames=merged.n_frames,
+                    n_points=merged.n_points, launches=la)
+        stats["merge"] = info
+        log("map_services merge", json.dumps(info))
+        if not (info["scale_rel_err"] < MERGE_SCALE_TOL
+                and info["align_rmse_scene"] < MERGE_RMSE):
+            fails.append(f"merge: scale {info['scale']} against {want}, align_rmse "
+                         f"{info['align_rmse_scene']} scene units")
+        fails += [f"merge: {k} not launched" for k in
+                  ("distance_topk", "sorted_segment_sum", "sorted_gather_rows") if la[k] <= 0]
+        # K2 at merge's bank-by-bank shape, on the merge's own banks.
+        from fastmatch_tpu_torch.pipeline.serve import _bucket
+
+        rec_a = sessions[0].rec
+        pad = [(np.zeros((_bucket(r.pt_desc.shape[0]), 128), np.float32),
+                np.zeros(_bucket(r.pt_desc.shape[0]), bool)) for r in (rec_b, rec_a)]
+        for (pd_, pm_), r in zip(pad, (rec_b, rec_a)):
+            pd_[:r.pt_desc.shape[0]], pm_[:r.pt_mask.shape[0]] = r.pt_desc, r.pt_mask
+        dv = torch.device(DEV)
+        stats["k2_merge"] = _k2_at("merge_bank_by_bank", torch.from_numpy(pad[0][0]).to(dv),
+                                   torch.from_numpy(pad[1][0]).to(dv),
+                                   torch.from_numpy(pad[0][1]).to(dv),
+                                   torch.from_numpy(pad[1][1]).to(dv))
+        del sessions, merged
+
+        # The city.
+        t0 = time.perf_counter()
+        stats["city"] = city = _city(rec, views_q, scene_h, align, cam, wrappers)
+        secs["city"] = time.perf_counter() - t0
+        for part in ("index_build_launches",):
+            add(city[part])
+        for r in city["routes"].values():
+            add(r["launches"])
+        if not city["index_builds_bit_identical"] or city["index_peak_bytes"] >= CITY_PEAK_BYTES:
+            fails.append(f"city index: bit-identical {city['index_builds_bit_identical']}, "
+                         f"peak {city['index_peak_bytes']} bytes")
+        if city["served"]["answered"] != CITY_SERVED or city["served"]["healthz"]["index"] != "ivf":
+            fails.append(f"city serve: {city['served']}")
+        par = city["ivf_parity"]
+        if not abs(par["agreement"] - JAX_CITY["agreement"]) <= IVF_PARITY_TOL:
+            fails.append(f"IVF parity: {par['agreement']} against the JAX package's {JAX_CITY}")
+        for name in ("k2_city_exact", "k2_merge"):
+            k2d = city.get(name) or stats.get(name)
+            if not (k2d["idx1_equal"] and k2d["nnb_equal"]):
+                fails.append(f"{name}: K2 differs from its plain version")
+        if not (city["k4_kmeans"]["bit_identical_rerun"]
+                and city["k4_kmeans"]["max_rel_err"] < 1e-5):
+            fails.append(f"K4 at the k-means shape: {city['k4_kmeans']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["seconds"] = secs
+    stats["launches"] = launches
+    log("map_services seconds", json.dumps(secs))
+    if fails:
+        raise AssertionError(f"map services: {fails}")
+    return launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -3037,12 +3868,14 @@ def main() -> int:
     details["config4_pgo"] = phase("config4_pgo", config4_pgo)
     config4_launches, details["config4_slam"], config4_inputs = phase("config4_slam",
                                                                       config4_slam)
-    device_slam_launches, details["config4_device_slam"] = phase(
+    device_slam_launches, details["config4_device_slam"], map120 = phase(
         "config4_device_slam", config4_device_slam, *config4_inputs)
     details["cli"] = phase("cli", cli_phase, scene, views, details["main_path"])
     vo_launches, details["vo_paths"] = phase("vo_paths", vo_paths)
     details["grouped_ba"] = phase("grouped_ba", grouped_ba, rec)
     details["five_point"] = phase("five_point", five_point, scene, views)
+    map_launches, details["map_services"] = phase("map_services", map_services, map120,
+                                                  config4_inputs[2])
     details["launches_by_path"] = dict(main_path_and_config2=dict(launches),
                                        config4_slam=config4_launches,
                                        config4_device_slam_120=device_slam_launches,
@@ -3050,7 +3883,8 @@ def main() -> int:
                                            "k4_launches_on_the_path"],
                                        **{f"cli_{k}": details["cli"][k]["launches"] for k in (
                                            "reconstruct", "match", "evaluate_synth")},
-                                       **{f"vo_{k}": v for k, v in vo_launches.items()})
+                                       **{f"vo_{k}": v for k, v in vo_launches.items()},
+                                       map_services=map_launches)
     log("phase_seconds", json.dumps(phase_s))
 
     meta = {
@@ -3069,7 +3903,8 @@ def main() -> int:
     for name, e in entries.items():
         source, replaces = meta[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], **e))
+                            launches=launches[name], **e,
+                            map_services_launches=map_launches[name]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_details.json"), "w") as fh:
         json.dump(dict(kernels=kernels, checks=details, phase_seconds=phase_s,

@@ -18,6 +18,10 @@ ported, with the JAX package's argument names and JSON output:
   stereo      dense rectified-stereo depth of two images
   densify     dense cloud from a posed image directory
   vialign     visual-inertial metric upgrade of a trajectory
+  locate      localize frames against a saved map (exact or IVF search,
+              or VLAD retrieval with --retrieval K)
+  merge       merge two saved maps into one
+  serve       HTTP localization service over a saved map
 
 Everything runs on the card unless ``--device cpu`` is given. An option or
 subcommand whose module is not ported yet raises ``NotImplementedError``
@@ -35,11 +39,6 @@ import sys
 import time
 
 import numpy as np
-
-# Subcommands of the JAX package's CLI whose engines are not ported yet,
-# with their ROADMAP Queue 1 item.
-_UNPORTED_COMMANDS = {"locate": 8, "merge": 8, "serve": 8}
-
 
 def not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not yet ported (ROADMAP Queue 1 item {item})")
@@ -112,8 +111,9 @@ def cmd_match(args):
 
     from fastmatch_tpu_torch.core.containers import descriptors_from_numpy
 
-    if args.method == "mirror":
-        raise not_ported("match --method mirror (matching/mirror.py)", 8)
+    if args.feature == "orb" and args.method == "mirror":
+        raise ValueError("--method mirror applies to SIFT float descriptors; ORB matches in "
+                         "Hamming space")
     cfg = _load_config(args)
     dev = _device(args)
 
@@ -141,6 +141,10 @@ def cmd_match(args):
 
         m = match_pair_hamming(da, db, ratio=cfg.matching.ratio,
                                cross_check=cfg.matching.cross_check, device=dev)
+    elif args.method == "mirror":
+        from fastmatch_tpu_torch.matching.mirror import match_pair_mirror
+
+        m = match_pair_mirror(da, db, tau=args.mirror_tau, device=dev)
     else:
         from fastmatch_tpu_torch.matching.matcher import match_pair
 
@@ -245,9 +249,31 @@ def _add_camera_args(sp):
 
 
 def _add_gps_args(sp):
-    sp.add_argument("--gps", metavar="NPZ", help="georegister to GPS camera centres")
-    sp.add_argument("--gps-weight", type=float, default=10.0)
-    sp.add_argument("--gps-delta", type=float, default=None)
+    sp.add_argument("--gps", metavar="NPZ",
+                    help="georegister the map to GPS camera centres: npz with 'frames' "
+                    "(sequence indices) and 'xyz' ((K, 3) world positions); sim(3) "
+                    "alignment, GPS-anchored pose graph, anchored BA")
+    sp.add_argument("--gps-weight", type=float, default=10.0,
+                    help="GPS prior information scale")
+    sp.add_argument("--gps-delta", type=float, default=None,
+                    help="robust width (metres) of the GPS priors (geman kernel)")
+
+
+def _run_gps(args, rec, cfg, metrics, frame_seq=None):
+    """--gps: the georegistration post-pass (pipeline/georegister.py)."""
+    from fastmatch_tpu_torch.pipeline.georegister import georegister
+
+    data = np.load(args.gps)
+    return georegister(rec, data["frames"], data["xyz"], cfg, weight=args.gps_weight,
+                       prior_delta=args.gps_delta, frame_seq=frame_seq, metrics=metrics)
+
+
+def _save_checkpoint(args, rec):
+    """--checkpoint DIR: the map in the port's format (pipeline/checkpoint.py)."""
+    if args.checkpoint:
+        from fastmatch_tpu_torch.pipeline.checkpoint import save_map
+
+        save_map(rec, args.checkpoint)
 
 
 def _add_export_args(sp):
@@ -260,10 +286,6 @@ def _refuse_unported(args):
     """Raise on the map-level options whose modules are not ported."""
     if getattr(args, "selfcal", 0):
         raise not_ported("--selfcal (ba/calibrate.py)", 4)
-    if getattr(args, "gps", None):
-        raise not_ported("--gps (pipeline/georegister.py)", 4)
-    if getattr(args, "checkpoint", None):
-        raise not_ported("--checkpoint (pipeline/checkpoint.py)", 4)
 
 
 def _run_exports(args, rec, cam):
@@ -306,14 +328,16 @@ def cmd_reconstruct(args):
     metrics = _metrics(args)
     with profile_trace(args.profile_dir):
         rec = reconstruct(feats, cam, cfg, metrics=metrics, device=_device(args))
+    gps = _run_gps(args, rec, cfg, metrics) if args.gps else None
     if metrics:
         metrics.log("stage_seconds", **{**rec.stage_seconds, **secs})
         metrics.close()
     if args.out:
         _save_map(args.out, rec)
+    _save_checkpoint(args, rec)
     _run_exports(args, rec, cam)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
-                      "n_obs": rec.n_obs, "out": args.out}))
+                      "n_obs": rec.n_obs, "out": args.out, **({"gps": gps} if gps else {})}))
 
 
 def cmd_slam(args):
@@ -359,6 +383,7 @@ def cmd_slam(args):
 
         out = slam(feats, cam, cfg, scfg, **kw)
     rec = out.rec
+    gps = _run_gps(args, rec, cfg, metrics, frame_seq=out.frame_seq) if args.gps else None
     if metrics:
         metrics.log("stage_seconds", **{**rec.stage_seconds, **secs})
         metrics.close()
@@ -366,10 +391,11 @@ def cmd_slam(args):
         _save_map(args.out, rec)
     if args.trajectory:
         _write_tum(args.trajectory, rec)
+    _save_checkpoint(args, rec)
     _run_exports(args, rec, cam)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
                       "loop_closures": len(out.loop_edges), "pgo_runs": out.pgo_runs,
-                      "engine": engine, "out": args.out}))
+                      "engine": engine, "out": args.out, **({"gps": gps} if gps else {})}))
 
 
 def _image_dir(path):
@@ -685,8 +711,102 @@ def cmd_evaluate(args):
     print(json.dumps({"aggregate": agg}))
 
 
-def _cmd_unported(args):
-    raise not_ported(f"the {args.cmd!r} subcommand", _UNPORTED_COMMANDS[args.cmd])
+def cmd_locate(args):
+    """Localize frames against a saved map (kidnapped-robot query): exact
+    search, or the IVF index above the crossover (pipeline/localize.py);
+    --retrieval K retrieves the top-K keyframes by VLAD and matches only
+    their landmarks (pipeline/retrieval.py)."""
+    cfg = _load_config(args)
+    dev = _device(args)
+    feats, cam = _load_features(args, cfg)
+    if args.retrieval > 0:
+        from fastmatch_tpu_torch.pipeline.retrieval import (build_keyframe_db,
+                                                            localize_hierarchical,
+                                                            map_from_checkpoint)
+
+        md = map_from_checkpoint(args.map)
+        db = build_keyframe_db(md, n_words=args.vocab_words, device=dev)
+
+        def _localize(xy, d, m):
+            return localize_hierarchical(md, db, xy, d, m, cam, topk=args.retrieval,
+                                         thr_px=args.thr_px)
+        mode = {"retrieval": args.retrieval}
+    else:
+        from fastmatch_tpu_torch.pipeline.localize import localize, map_index_from_checkpoint
+
+        index = map_index_from_checkpoint(args.map, ann_threshold=args.ann_threshold,
+                                          device=dev)
+
+        def _localize(xy, d, m):
+            return localize(index, xy, d, m, cam, thr_px=args.thr_px)
+        mode = {"ann": index.ivf is not None}
+    frames = range(len(feats)) if args.frame < 0 else [args.frame]
+    n_ok = 0
+    for k in frames:
+        r = _localize(*feats[k])
+        ok = bool(r.ok)
+        n_ok += ok
+        print(json.dumps({
+            "frame": int(k), "ok": ok,
+            "n_matches": int(r.n_matches), "n_inliers": int(r.n_inliers),
+            "R": r.R.cpu().numpy().tolist() if ok else None,
+            "t": r.t.cpu().numpy().tolist() if ok else None,
+        }))
+    print(json.dumps({"localized": n_ok, "of": len(frames), **mode}))
+    return 0 if n_ok else 1
+
+
+def _pinhole(args, dist: str = ""):
+    """The camera of --focal/--width/--height (principal point at the
+    centre), with --camera-model/--dist where the subcommand has them."""
+    from fastmatch_tpu_torch.core.camera import Fisheye, Pinhole
+
+    w, h = args.width, args.height
+    K = np.array([[args.focal, 0, w / 2], [0, args.focal, h / 2], [0, 0, 1.0]], np.float32)
+    coeffs = tuple(float(x) for x in dist.split(",")) if dist else ()
+    model = getattr(args, "camera_model", "pinhole")
+    return (Fisheye if model == "fisheye" else Pinhole).from_K(K, coeffs)
+
+
+def cmd_merge(args):
+    """Merge two saved maps (pipeline/merge.py): cross-localize map B's
+    keyframes in map A through VLAD retrieval, recover the Sim(3) between
+    the sessions, dedup shared landmarks, joint BA; writes the merged map."""
+    from fastmatch_tpu_torch.pipeline.checkpoint import save_map
+    from fastmatch_tpu_torch.pipeline.merge import merge_maps, rec_from_checkpoint
+
+    if args.focal is None:
+        raise ValueError("merge needs --focal: the focal length in pixels that both maps' "
+                         "normalized observations were made with")
+    dev = _device(args)
+    cam = _pinhole(args)
+    rec_a = rec_from_checkpoint(args.map_a, cam, device=dev)
+    rec_b = rec_from_checkpoint(args.map_b, cam, device=dev)
+    merged, info = merge_maps(rec_a, rec_b, thr_px=args.thr_px, topk=args.retrieval,
+                              stride=args.stride, dedup_thr=args.dedup_thr,
+                              refine=not args.no_refine)
+    if args.out:
+        save_map(merged, args.out)
+        info["out"] = args.out
+    _run_exports(args, merged, cam)
+    info["n_frames"] = int(merged.n_frames)
+    info["n_points"] = int(merged.n_points)
+    print(json.dumps(info))
+    return 0
+
+
+def cmd_serve(args):
+    """Serve localization queries over a saved map (pipeline/serve.py): the
+    index built once, the query path run (and on the card its kernel
+    built) before the socket opens, then HTTP until interrupted."""
+    from fastmatch_tpu_torch.pipeline.serve import serve
+
+    dev = _device(args)
+    cam = _pinhole(args, args.dist)
+    print(json.dumps({"serving": f"http://{args.host}:{args.port}", "map": args.map}),
+          flush=True)
+    serve(args.map, cam, host=args.host, port=args.port, ann_threshold=args.ann_threshold,
+          thr_px=args.thr_px, device=dev)
 
 
 def cmd_bench(args):
@@ -712,8 +832,10 @@ def main(argv=None):
     sp.add_argument("--verify", default="none", choices=["none", "fundamental", "homography"],
                     help="geometric verification filter (image inputs only)")
     sp.add_argument("--method", choices=("ratio", "mirror"), default="ratio",
-                    help="ratio = Lowe top-2 + cross-check; mirror: not yet ported")
-    sp.add_argument("--mirror-tau", type=float, default=1.0)
+                    help="ratio = Lowe top-2 + cross-check; mirror = mutual NN gated by "
+                    "joint-set distinctiveness (matching/mirror.py, no ratio test)")
+    sp.add_argument("--mirror-tau", type=float, default=1.0,
+                    help="mirror self-distance gate scale")
     sp.add_argument("--feature", choices=("sift", "orb"), default="sift",
                     help="descriptor family of image inputs: sift (float L2) or orb "
                          "(256-bit binary, Hamming)")
@@ -728,7 +850,8 @@ def main(argv=None):
                     help="incremental SfM; global: not yet ported")
     sp.add_argument("--window", type=int, default=8, help="global mode's view-graph window")
     sp.add_argument("--out")
-    sp.add_argument("--checkpoint")
+    sp.add_argument("--checkpoint", metavar="DIR",
+                    help="save the map here (map.pt, pipeline/checkpoint.py)")
     sp.add_argument("--metrics", help="write JSONL metrics here")
     sp.add_argument("--profile-dir", help="capture a torch.profiler trace here")
     sp.add_argument("--selfcal", type=int, default=0, metavar="N")
@@ -756,7 +879,8 @@ def main(argv=None):
     sp.add_argument("--out")
     sp.add_argument("--plot")
     sp.add_argument("--trajectory", help="write TUM-format trajectory here")
-    sp.add_argument("--checkpoint")
+    sp.add_argument("--checkpoint", metavar="DIR",
+                    help="save the map here (map.pt, pipeline/checkpoint.py)")
     sp.add_argument("--metrics", help="write JSONL metrics here")
     sp.add_argument("--selfcal", type=int, default=0, metavar="N")
     _add_gps_args(sp)
@@ -849,10 +973,53 @@ def main(argv=None):
     sp.add_argument("--out", required=True)
     sp.set_defaults(fn=cmd_vialign)
 
-    for name in _UNPORTED_COMMANDS:
-        sp = sub.add_parser(name, help="not yet ported")
-        sp.add_argument("rest", nargs=argparse.REMAINDER)
-        sp.set_defaults(fn=_cmd_unported)
+    sp = sub.add_parser("locate", help="localize frames against a saved map")
+    sp.add_argument("map", help="map checkpoint dir (slam/reconstruct --checkpoint output)")
+    sp.add_argument("input", help="feature .npz or image directory")
+    _add_camera_args(sp)
+    sp.add_argument("--frame", type=int, default=-1, help="localize only this frame (-1 = all)")
+    sp.add_argument("--thr-px", type=float, default=2.0)
+    sp.add_argument("--ann-threshold", type=int, default=None,
+                    help="bank rows from which the IVF index is used (default 100,000; "
+                    "0 forces IVF)")
+    sp.add_argument("--retrieval", type=int, default=0, metavar="K",
+                    help="hierarchical mode: retrieve the top-K keyframes by VLAD, match "
+                    "only their landmarks (0 = flat search over the whole bank)")
+    sp.add_argument("--vocab-words", type=int, default=64,
+                    help="VLAD vocabulary size for --retrieval")
+    sp.set_defaults(fn=cmd_locate)
+
+    sp = sub.add_parser("merge", help="merge two saved maps into one")
+    sp.add_argument("map_a", help="map checkpoint dir (kept gauge)")
+    sp.add_argument("map_b", help="map checkpoint dir (re-gauged into A)")
+    sp.add_argument("--out", help="merged map checkpoint dir")
+    sp.add_argument("--focal", type=float, default=None,
+                    help="focal length in pixels of both maps (required)")
+    sp.add_argument("--width", type=int, default=640)
+    sp.add_argument("--height", type=int, default=480)
+    sp.add_argument("--thr-px", type=float, default=2.0)
+    sp.add_argument("--retrieval", type=int, default=4, metavar="K",
+                    help="keyframes retrieved per cross-localization")
+    sp.add_argument("--stride", type=int, default=1, help="localize every Nth frame of map B")
+    sp.add_argument("--dedup-thr", type=float, default=None,
+                    help="largest 3D distance (map A's units) at which two mutually matched "
+                    "landmarks merge (default: 2%% of A's landmark-cloud diameter)")
+    sp.add_argument("--no-refine", action="store_true",
+                    help="skip the joint BA over the merged map")
+    _add_export_args(sp)
+    sp.set_defaults(fn=cmd_merge)
+
+    sp = sub.add_parser("serve", help="HTTP localization service over a saved map")
+    sp.add_argument("map", help="map checkpoint dir (slam/reconstruct --checkpoint output)")
+    _add_camera_args(sp)
+    sp.add_argument("--width", type=int, default=640)
+    sp.add_argument("--height", type=int, default=480)
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8080)
+    sp.add_argument("--thr-px", type=float, default=2.0)
+    sp.add_argument("--ann-threshold", type=int, default=None,
+                    help="bank rows from which the IVF index is used")
+    sp.set_defaults(fn=cmd_serve)
     sp = sub.add_parser("bench", help="not yet ported")
     sp.set_defaults(fn=cmd_bench)
 

@@ -28,6 +28,9 @@ from fastmatch_tpu_torch.core.lie import SE3, Sim3
 from fastmatch_tpu_torch.dense.stereo import StereoConfig
 from fastmatch_tpu_torch.features.klt import KLTConfig
 from fastmatch_tpu_torch.features.sift import SIFTConfig
+from fastmatch_tpu_torch.matching.ann import IVFIndex, IVFIndexSorted
+from fastmatch_tpu_torch.matching.vlad import Vocabulary
+from fastmatch_tpu_torch.pipeline import checkpoint as _checkpoint
 from fastmatch_tpu_torch.pipeline import config as _config
 from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
 from fastmatch_tpu_torch.pipeline.slam import SlamResult
@@ -48,6 +51,8 @@ __all__ = [
     "track_state_to_numpy", "tracker_static_from", "klt_config_from", "vo_config_from",
     "stereo_config_from", "stereo_vo_config_from", "vo_scan_static_from",
     "vo_scan_state_from_numpy", "vo_scan_state_to_numpy", "imu_preintegration_from_numpy",
+    "map_checkpoint_from_numpy", "ivf_index_from_numpy", "ivf_index_sorted_from_numpy",
+    "vocabulary_from_numpy",
 ]
 
 # Map state of a Reconstruction: arrays and counters.
@@ -324,3 +329,43 @@ def imu_preintegration_from_numpy(pre, device=None) -> ImuPreintegration:
     the JAX package's arrays or a dict with its field names."""
     return ImuPreintegration(**{name: _t(_field(pre, name), device, torch.float32)
                                 for name in ImuPreintegration._fields})
+
+
+def map_checkpoint_from_numpy(tree, path: str) -> None:
+    """Write the JAX package's map checkpoint tree (``save_map``'s orbax
+    tree as ``orbax.checkpoint.PyTreeCheckpointer().restore`` returns it, or
+    any dict of arrays with its keys: the map arrays, ``counters`` and
+    ``config_hash``) into ``path`` in the port's format (``map.pt``). The
+    arrays keep their dtypes and the config hash its bytes."""
+    out = {name: torch.from_numpy(np.array(_field(tree, name), copy=True))
+           for name in _checkpoint.MAP_ARRAYS}
+    out.update(format=_checkpoint.MAP_FORMAT,
+               counters=torch.from_numpy(np.array(_field(tree, "counters"), np.int64)),
+               config_hash=torch.from_numpy(np.array(_field(tree, "config_hash"), np.uint8)))
+    _checkpoint._save(out, path, _checkpoint.MAP_FILE)
+
+
+def _descriptors_of(d, device) -> Descriptors:
+    return descriptors_from_arrays(_field(d, "data"), _field(d, "mask"), device)
+
+
+def ivf_index_from_numpy(index, device=None) -> IVFIndex:
+    """The port's IVFIndex from the JAX package's (centroids, assign, desc)."""
+    return IVFIndex(centroids=_t(_field(index, "centroids"), device, torch.float32),
+                    assign=_t(_field(index, "assign"), device, torch.int32),
+                    desc=_descriptors_of(_field(index, "desc"), device))
+
+
+def ivf_index_sorted_from_numpy(index, device=None) -> IVFIndexSorted:
+    """The port's IVFIndexSorted from the JAX package's (centroids, desc,
+    perm, starts, assign), so that both packages search one index."""
+    return IVFIndexSorted(centroids=_t(_field(index, "centroids"), device, torch.float32),
+                          desc=_descriptors_of(_field(index, "desc"), device),
+                          perm=_t(_field(index, "perm"), device, torch.int32),
+                          starts=_t(_field(index, "starts"), device, torch.int32),
+                          assign=_t(_field(index, "assign"), device, torch.int32))
+
+
+def vocabulary_from_numpy(vocab, device=None) -> Vocabulary:
+    """The port's Vocabulary from the JAX package's (its ``words``)."""
+    return Vocabulary(words=_t(_field(vocab, "words"), device, torch.float32))

@@ -17,21 +17,34 @@ from typing import NamedTuple
 import torch
 
 
-def align_umeyama(X: torch.Tensor, Y: torch.Tensor):
+def align_umeyama(X: torch.Tensor, Y: torch.Tensor, mask=None, with_scale: bool = True):
     """Least-squares similarity (s, R, t) minimizing |s R X + t - Y| for
-    (N, 3) point sets X (estimated) and Y (ground truth)."""
+    (N, 3) point sets X (estimated) and Y (ground truth). ``mask`` (N,)
+    restricts the fit to its True rows (the JAX package's weighted form);
+    ``with_scale=False`` fixes s = 1."""
     X = torch.as_tensor(X, dtype=torch.float32)
     Y = torch.as_tensor(Y, dtype=torch.float32, device=X.device)
-    mx = X.mean(0)
-    my = Y.mean(0)
-    C = (Y - my).T @ (X - mx) / X.shape[0]
+    if mask is None:
+        mx = X.mean(0)
+        my = Y.mean(0)
+        C = (Y - my).T @ (X - mx) / X.shape[0]
+        var_x = ((X - mx) ** 2).sum(-1).mean()
+    else:
+        w = torch.as_tensor(mask, device=X.device).to(torch.float32)
+        wsum = torch.clamp(w.sum(), min=1e-9)
+        mx = (X * w[:, None]).sum(0) / wsum
+        my = (Y * w[:, None]).sum(0) / wsum
+        C = ((Y - my) * w[:, None]).T @ (X - mx) / wsum
+        var_x = (((X - mx) ** 2).sum(-1) * w).sum() / wsum
     U, D, Vt = torch.linalg.svd(C)
     det = torch.linalg.det(U) * torch.linalg.det(Vt)
     diag = torch.ones(3, device=X.device)
     diag[2] = torch.where(det < 0, -1.0, 1.0)
     R = U @ torch.diag(diag) @ Vt
-    var_x = ((X - mx) ** 2).sum(-1).mean()
-    s = (D * diag).sum() / torch.clamp(var_x, min=1e-12)
+    if with_scale:
+        s = (D * diag).sum() / torch.clamp(var_x, min=1e-12)
+    else:
+        s = torch.ones((), device=X.device)
     t = my - s * R @ mx
     return s, R, t
 

@@ -231,17 +231,17 @@ def test_info_and_config(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["match", "a.npy", "b.npy", "--method", "mirror"], 8),
+    (["slam", "d", "--no-overlap"], 9),
     (["reconstruct", "d", "--selfcal", "2"], 4),
-    (["reconstruct", "d", "--gps", "g.npz"], 4),
-    (["reconstruct", "d", "--checkpoint", "ck"], 4),
+    (["slam", "d", "--selfcal", "2"], 4),
+    (["reconstruct", "d", "--selfcal", "1", "--checkpoint", "ck"], 4),
     (["reconstruct", "d", "--mode", "global"], 4),
     (["slam", "d", "--mesh", "bank=4"], 9),
     (["slam", "d", "--resume", "ck"], 9),
     (["slam", "d", "--plot", "p.png"], 4),
-    (["slam", "d", "--checkpoint", "ck"], 4),
+    (["slam", "d", "--checkpoint-interval", "5"], 9),
     (["evaluate", "synth", "--plot-dir", "p"], 4),
-    (["locate", "m", "d"], 8),
+    (["slam", "d", "--mesh", "bank=4", "--checkpoint", "ck"], 9),
 ])
 def test_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"not yet ported .ROADMAP Queue 1 item {item}"):
