@@ -38,7 +38,15 @@ Phases, in order; any failure exits nonzero before the result line:
 6. the config-3 main path: ``reconstruct(images=...)`` on the 50 rendered
    frames with the default ``PipelineConfig``, with every kernel's launch
    count set to 0 just before and read just after (K3: one launch a
-   frame);
+   frame); then global SfM and self-calibration on the same frames
+   (``global_sfm_selfcal``): ``global_reconstruct(images=...)`` twice at
+   window 8, bit-identical, ATE against the JAX package's, no host sync
+   inside the averaging, K3 one launch a frame, K2 at least one a pair
+   attempted, K4 and K5 launched, K1 not, and K4 at the averaging's
+   key-set shapes against a float64 sum; ``self_calibrate`` of the true
+   map seen through fx, fy x 1.06 (fx error cut by more than 3x, vector
+   within 1e-3 of the JAX package's); ``reconstruct --mode global
+   --selfcal 2`` and ``slam --plot`` through the CLI;
 7. BASELINE.json config 4: the 500-keyframe pose graph through
    ``pgo_solve`` (dense and PCG), ``pgo_solve_hierarchical`` and
    ``sim3_pgo_solve``, held to the JAX package's figures on a CPU, every
@@ -146,6 +154,41 @@ def render_smoke_scene(n_frames=None):
     frames = list(range(p["n_frames"] if n_frames is None else n_frames))
     views = render_scene_views(scene, rng, image_size=p["image_size"], frames=frames)
     return scene, views
+
+
+# Self-calibration on the smoke scene (``global_sfm_selfcal``): the
+# ground-truth map observed through a camera whose fx and fy are this many
+# times the true ones (tests/test_calibrate.py's wrong-intrinsics map).
+SELFCAL_SCALE = 1.06
+SELFCAL_ROUNDS = 3
+
+
+def selfcal_inputs(scene):
+    """The smoke scene's ground-truth map as a miscalibrated pipeline would
+    hold it: (R (F, 3, 3), t (F, 3), points (P, 3) seen by some frame,
+    obs_frame, obs_point, obs_uv (O, 2) f32, true (9,) f32, wrong (fx, fy,
+    cx, cy)). ``obs_uv`` is each true pixel normalized with the wrong
+    camera, in float32, frame by frame; numpy only, so both packages
+    start from the same bits."""
+    import numpy as np
+
+    F = scene.R.shape[0]
+    true = np.array([scene.K[0, 0], scene.K[1, 1], scene.K[0, 2], scene.K[1, 2],
+                     0, 0, 0, 0, 0], np.float32)
+    f = true[:2] * np.float32(SELFCAL_SCALE)
+    c = true[2:4]
+    seen = scene.visible.any(axis=0)
+    remap = np.cumsum(seen) - 1
+    obs_f, obs_p, obs_uv = [], [], []
+    for k in range(F):
+        p = np.nonzero(scene.visible[k])[0]
+        obs_f.append(np.full(len(p), k, np.int32))
+        obs_p.append(remap[p].astype(np.int32))
+        obs_uv.append((scene.pixels[k, p].astype(np.float32) - c) / f)
+    wrong = (float(f[0]), float(f[1]), float(c[0]), float(c[1]))
+    return (scene.R.astype(np.float32), scene.t.astype(np.float32),
+            scene.points[seen].astype(np.float32), np.concatenate(obs_f),
+            np.concatenate(obs_p), np.concatenate(obs_uv), true, wrong)
 
 
 # The VO phase's stereo rig: the smoke scene's left frames and right frames
@@ -3817,6 +3860,279 @@ def map_services(map120, feats56):
     return launches, stats
 
 
+# The JAX package's figures on the smoke scene, on a CPU
+# (tools/jax_global_reference.py --seed S): global_reconstruct(images=...)
+# at window 8 with the default PipelineConfig, its ATE over RANSAC seeds 0-2
+# and seed 0's counts, and self_calibrate (3 rounds, fx and fy free) of the
+# ground-truth map seen through fx, fy x 1.06. The JAX package's own global
+# SfM does not reach ATE_GATE on this scene (the window-8 view graph of a
+# 1.2-radian arc constrains scale weakly along the chain), so the port's
+# ATE is held to the JAX package's largest over the seeds, as
+# config4_device_slam holds the SLAM engines.
+JAX_GLOBAL = dict(
+    ate_seeds={0: 1.1986212730407715, 1: 1.3639470338821411,
+               2: 1.0967719554901123},
+    seed0=dict(frames=50, edges=308, tracks=5812, n_obs=15673,
+               ba_cost0=0.07578925788402557, ba_cost=0.009515617974102497),
+    selfcal=dict(vec=[500.0, 500.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0, 0.0], fx_err0=30.0,
+                 fx_err=0.0, history=[[2.0930907007610244e-10, 7.81445741449005e-12],
+                                      [2.079520028397397e-10, 7.81445741449005e-12],
+                                      [2.079520028397397e-10, 7.81445741449005e-12]]))
+GLOBAL_WINDOW = 8
+GLOBAL_ATE_MARGIN = 1.15   # the port's ATE at most this times the JAX package's largest
+SELFCAL_RTOL = 1e-3        # refined vector against the JAX package's
+SELFCAL_CUT = 3.0          # the fx error cut by more than this
+SLAM_PLOT_FRAMES = 12      # frames of the ``slam --plot`` CLI run
+
+
+def _selfcal_reconstruction(scene):
+    """(Reconstruction, wrong camera, config, true (9,)) of
+    ``selfcal_inputs``: the smoke scene's true map holding observations
+    normalized with the wrong camera, on DEV."""
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+    from fastmatch_tpu_torch.pipeline.reconstruct import Reconstruction
+
+    R, t, X, obs_f, obs_p, obs_uv, true, wrong = selfcal_inputs(scene)
+    cam, cfg = Pinhole(*wrong), PipelineConfig()
+    rec = Reconstruction(cfg=cfg, camera=cam, device=torch.device(DEV))
+    F = R.shape[0]
+    rec.R[:F], rec.t[:F], rec.pose_mask[:F], rec.n_frames = R, t, True, F
+    rec.add_points(X, np.zeros((X.shape[0], cfg.map.desc_dim), np.float32))
+    for f in range(F):
+        sel = obs_f == f
+        rec.add_observations(f, obs_p[sel], obs_uv[sel])
+    return rec, cam, cfg, true
+
+
+def _averaging_k4(g, keys):
+    """K4 at the averaging's key-set shapes, (2E, 3) and (2E, 1) rows into
+    F frames: against a float64 sum on the host (the largest error relative
+    to the largest sum), a rerun bit for bit, wrapper ms, device us,
+    ``segment_sum_plain`` and ``torch.segment_reduce`` (the library time)."""
+    import torch
+
+    from fastmatch_tpu_torch.kernels import segment_ops as k4
+
+    gen = torch.Generator(DEV).manual_seed(11)
+    out = {}
+    for d in (3, 1):
+        rows = keys.seg.shape[0]
+        vals = torch.randn((rows, d), generator=gen, device=DEV).contiguous()
+        call = lambda: k4.sorted_segment_sum(vals, keys.seg, keys.n, keys.offsets,  # noqa: E731
+                                             keys.max_len)
+        got = call()
+        ref = torch.zeros((keys.n, d), dtype=torch.float64).index_add_(
+            0, keys.seg.long().cpu(), vals.double().cpu())
+        lengths = k4.segment_lengths(keys.offsets)
+        e = dict(rows=rows, cols=d, segments=keys.n, longest_segment=keys.max_len,
+                 edges=int(g.edge_i.shape[0]),
+                 max_rel_err=float((got.double().cpu() - ref).abs().max()
+                                   / ref.abs().max()),
+                 bit_identical_rerun=bool(torch.equal(call(), got)),
+                 ms=cuda_ms(call, batches=5, reps=HOST_REPS),
+                 plain_ms=cuda_ms(lambda: k4.segment_sum_plain(vals, keys.seg, keys.n),
+                                  batches=5, reps=HOST_REPS),
+                 library_ms=cuda_ms(lambda: torch.segment_reduce(vals, "sum", lengths=lengths),
+                                    batches=5, reps=HOST_REPS))
+        e.update(_device_time(call, {"segsum_short", "segsum_long"}, 1, 200))
+        e["bound_ms"], e["bound_by"] = bound(4 * (vals.numel() + keys.n + 1 + keys.n * d),
+                                             float(vals.numel()))
+        out[f"{rows}x{d}"] = e
+    return out
+
+
+def global_sfm_selfcal(scene, views):
+    """Global SfM and self-calibration at config 3's widths on the 50 smoke
+    frames: ``global_reconstruct(images=...)`` twice (window 8, default
+    PipelineConfig), ``self_calibrate`` of the scene's true map seen through
+    fx, fy x 1.06 (3 rounds, fx and fy free), ``reconstruct --mode global
+    --selfcal 2`` and ``slam --plot`` through the CLI. Each run has the
+    launch counts set to 0 just before and read just after; the global runs
+    count host synchronizations, and those inside ``rotation_averaging`` and
+    ``translation_averaging`` apart. Gates: 50/50 frames, ATE at most
+    GLOBAL_ATE_MARGIN x the JAX package's largest over seeds 0-2, the two runs
+    bit-identical, no sync inside the averaging, K3 one launch a frame, K2
+    at least one a view-graph pair attempted, K4 and K5 launched, K1 not,
+    K4 at the averaging's key-set shapes against a float64 sum, the
+    calibration's fx error cut by more than SELFCAL_CUT and its vector
+    within SELFCAL_RTOL of the JAX package's, and ``slam --plot`` writing a
+    PNG or naming the missing matplotlib."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.ba.calibrate import param_indices, self_calibrate
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.pipeline import global_sfm as gs
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+    from fastmatch_tpu_torch.pipeline.reconstruct import detect_features
+    from fastmatch_tpu_torch.utils.evaluation import ate_rmse
+
+    wrappers = _kernel_wrappers()
+    cam = Pinhole.from_K(scene.K)
+    F = len(views)
+    gt = -np.einsum("fji,fj->fi", scene.R[:F], scene.t[:F])
+    pairs = sum(min(GLOBAL_WINDOW, F - 1 - i) for i in range(F))
+    stats = dict(window=GLOBAL_WINDOW, pairs_attempted=pairs, jax_cpu=JAX_GLOBAL, runs={})
+    fails = []
+    captured = {}
+
+    def run_global(name):
+        caught = []
+        inside = dict(rotation_averaging=0, translation_averaging=0)
+        k4_inside = dict(inside)
+        k4 = wrappers["sorted_segment_sum"]
+
+        def watched(fn_name):
+            fn = getattr(gs, fn_name)
+
+            def call(g, *a, **kw):
+                n0, l0 = len(caught), k4.launches
+                out = fn(g, *a, **kw)
+                inside[fn_name] += sum("synchroniz" in str(w.message) for w in caught[n0:])
+                k4_inside[fn_name] += k4.launches - l0
+                captured[fn_name] = (g, kw["keys"])
+                return out
+            return fn, call
+
+        originals = {}
+        for fn_name in inside:
+            originals[fn_name], patched = watched(fn_name)
+            setattr(gs, fn_name, patched)
+        _reset_launches(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with warnings.catch_warnings(record=True) as caught_list:
+                warnings.simplefilter("always")
+                caught = caught_list
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    rec = gs.global_reconstruct(None, cam, PipelineConfig(), images=views,
+                                                window=GLOBAL_WINDOW, device=DEV)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for fn_name, fn in originals.items():
+                setattr(gs, fn_name, fn)
+        launches = _read_launches(wrappers)
+        centers = rec.camera_centers()
+        st = rec.frame_stats[-1]
+        stats["runs"][name] = dict(
+            frames=F, frames_reconstructed=rec.n_frames, seconds=wall,
+            stage_seconds=rec.stage_seconds, ate=float(ate_rmse(centers, gt[:rec.n_frames])),
+            edges=st["edges"], tracks=st["tracks"], n_points=int(rec.n_points),
+            n_obs=int(rec.n_obs), ba_cost0=st["ba_cost0"], ba_cost=st["ba_cost"],
+            host_syncs=sum("synchroniz" in str(w.message) for w in caught),
+            syncs_inside=inside, k4_launches_inside=k4_inside,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            launches=launches, finite=bool(np.isfinite(centers).all()
+                                           and np.isfinite(rec.points[rec.pt_mask]).all()))
+        log(f"global_sfm_selfcal {name}", json.dumps(stats["runs"][name]))
+        return rec, launches
+
+    rec_a, launches = run_global("global_reconstruct")
+    rec_b, _ = run_global("global_reconstruct_rerun")
+    ra = stats["runs"]["global_reconstruct"]
+    stats["bit_identical"] = all(np.array_equal(getattr(rec_a, k), getattr(rec_b, k)) for k in (
+        "R", "t", "points", "obs_cam", "obs_pt", "obs_uv", "obs_mask"))
+    ate_limit = GLOBAL_ATE_MARGIN * max(JAX_GLOBAL["ate_seeds"].values())
+    stats["ate_limit"] = ate_limit
+    if ra["frames_reconstructed"] != F or not ra["finite"]:
+        fails.append(f"global: {ra['frames_reconstructed']}/{F} frames, or non-finite output")
+    if not ra["ate"] <= ate_limit:
+        fails.append(f"global ATE {ra['ate']} above {ate_limit} (the JAX package's largest "
+                     f"over seeds x {GLOBAL_ATE_MARGIN})")
+    if not stats["bit_identical"]:
+        fails.append("global: the two runs differ")
+    for run in stats["runs"].values():
+        if any(run["syncs_inside"].values()):
+            fails.append(f"global: host syncs inside the averaging {run['syncs_inside']}")
+    if (launches["gather_patch_sets"] != F or launches["gather_patches"]
+            or launches["distance_topk"] < pairs or launches["sorted_segment_sum"] <= 0
+            or launches["sorted_gather_rows"] <= 0 or launches["batch_match"]):
+        fails.append(f"global: launches {launches} (want K3 {F}, K2 >= {pairs}, K4 and K5 "
+                     "> 0, K1 0)")
+    stats["k4_averaging"] = _averaging_k4(*captured["translation_averaging"])
+    for shape, e in stats["k4_averaging"].items():
+        log(f"global_sfm_selfcal K4 {shape}", json.dumps(e))
+        if not (e["max_rel_err"] < 1e-5 and e["bit_identical_rerun"]):
+            fails.append(f"K4 at the averaging's shape {shape}: {e}")
+
+    # Self-calibration of the true map seen through the wrong focal.
+    rec, wrong, cfg, true = _selfcal_reconstruction(scene)
+    _reset_launches(wrappers)
+    t0 = time.perf_counter()
+    cam2, hist = self_calibrate(rec, wrong, cfg, rounds=SELFCAL_ROUNDS,
+                                free=param_indices("pinhole", ("fx", "fy")))
+    torch.cuda.synchronize()
+    vec = np.asarray(cam2.intrinsics_vector(), np.float64)
+    jvec = np.asarray(JAX_GLOBAL["selfcal"]["vec"])
+    sc = dict(seconds=time.perf_counter() - t0, vec=vec.tolist(), jax_vec=jvec.tolist(),
+              history=[list(h) for h in hist], n_obs=rec.n_obs,
+              fx_err0=abs(wrong.fx - float(true[0])), fx_err=abs(vec[0] - float(true[0])),
+              launches=_read_launches(wrappers))
+    stats["self_calibrate"] = sc
+    log("global_sfm_selfcal self_calibrate", json.dumps(sc))
+    if not sc["fx_err"] < sc["fx_err0"] / SELFCAL_CUT:
+        fails.append(f"self_calibrate: fx error {sc['fx_err']} from {sc['fx_err0']}")
+    if not np.allclose(vec, jvec, rtol=SELFCAL_RTOL, atol=1e-6):
+        fails.append(f"self_calibrate: {vec} against the JAX package's {jvec}")
+    if sc["launches"]["sorted_segment_sum"] <= 0 or sc["launches"]["sorted_gather_rows"] <= 0:
+        fails.append(f"self_calibrate: launches {sc['launches']}")
+
+    # The CLI: reconstruct --mode global --selfcal 2, slam --plot.
+    cfg = PipelineConfig()
+    feats = detect_features(views, cfg, DEV)
+    with tempfile.TemporaryDirectory() as tmp:
+        def npz(n):
+            arrays = {"n_frames": n, "image_size": np.array(views[0].shape[::-1])}
+            for i, (xy, d, m) in enumerate(feats[:n]):
+                arrays.update({f"xy_{i}": xy, f"desc_{i}": d, f"mask_{i}": m})
+            path = os.path.join(tmp, f"features{n}.npz")
+            np.savez(path, **arrays)
+            return path
+
+        _reset_launches(wrappers)
+        reports, secs = _cli(["reconstruct", npz(F), "--mode", "global", "--window",
+                              str(GLOBAL_WINDOW), "--selfcal", "2",
+                              "--out", os.path.join(tmp, "rec.npz")])
+        rep = reports[-1]
+        centers = np.load(os.path.join(tmp, "rec.npz"))["centers"]
+        stats["cli_reconstruct"] = dict(report=rep, seconds=secs,
+                                        launches=_read_launches(wrappers),
+                                        ate=float(ate_rmse(centers, gt[:len(centers)])))
+        log("global_sfm_selfcal cli", json.dumps(stats["cli_reconstruct"]))
+        if (rep.get("n_frames") != F or set(rep.get("selfcal", {})) != {
+                "fx", "fy", "cx", "cy", "dist", "mean_px2"}
+                or not stats["cli_reconstruct"]["ate"] <= ate_limit):
+            fails.append(f"cli reconstruct --mode global --selfcal 2: {rep}")
+        png = os.path.join(tmp, "traj.png")
+        try:
+            reports, secs = _cli(["slam", npz(min(SLAM_PLOT_FRAMES, F)), "--plot", png])
+            plot = dict(outcome="png", bytes=os.path.getsize(png), seconds=secs,
+                        report=reports[-1])
+            if plot["bytes"] < 2000:
+                fails.append(f"slam --plot wrote {plot['bytes']} bytes")
+        except ImportError as e:
+            plot = dict(outcome="ImportError", message=str(e))
+            if "matplotlib" not in str(e):
+                fails.append(f"slam --plot: {e}")
+        stats["slam_plot"] = plot
+        log("global_sfm_selfcal slam --plot", json.dumps(plot))
+    if fails:
+        raise AssertionError("global_sfm_selfcal: " + "; ".join(fails))
+    return launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -3865,6 +4181,8 @@ def main() -> int:
     launches = phase("config2_images", config2_images, views)
     main_launches, details["main_path"], rec = phase("main_path", main_path, scene, views)
     launches.update(main_launches)
+    global_launches, details["global_sfm_selfcal"] = phase("global_sfm_selfcal",
+                                                           global_sfm_selfcal, scene, views)
     details["config4_pgo"] = phase("config4_pgo", config4_pgo)
     config4_launches, details["config4_slam"], config4_inputs = phase("config4_slam",
                                                                       config4_slam)
@@ -3884,7 +4202,8 @@ def main() -> int:
                                        **{f"cli_{k}": details["cli"][k]["launches"] for k in (
                                            "reconstruct", "match", "evaluate_synth")},
                                        **{f"vo_{k}": v for k, v in vo_launches.items()},
-                                       map_services=map_launches)
+                                       map_services=map_launches,
+                                       global_sfm_selfcal=global_launches)
     log("phase_seconds", json.dumps(phase_s))
 
     meta = {
@@ -3904,7 +4223,8 @@ def main() -> int:
         source, replaces = meta[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **e,
-                            map_services_launches=map_launches[name]))
+                            map_services_launches=map_launches[name],
+                            global_sfm_launches=global_launches[name]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_details.json"), "w") as fh:
         json.dump(dict(kernels=kernels, checks=details, phase_seconds=phase_s,

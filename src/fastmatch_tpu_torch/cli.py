@@ -8,10 +8,14 @@ ported, with the JAX package's argument names and JSON output:
   info        torch version, device name, power limit
   match       two descriptor files (.npy) or two images (SIFT or ORB),
               optional geometric verification
-  reconstruct incremental SfM over an image directory or .npz features
+  reconstruct incremental SfM (or global SfM with --mode global) over an
+              image directory or .npz features; --selfcal N refines the
+              intrinsics against the map
   evaluate    match precision/recall ('synth' pairs or an Oxford-VGG
-              directory) or trajectory ATE/RPE ('traj --est --gt')
-  slam        SLAM with loop closure (--engine auto|device|host|scan|chunked)
+              directory; --plot-dir for match figures) or trajectory
+              ATE/RPE ('traj --est --gt')
+  slam        SLAM with loop closure (--engine auto|device|host|scan|chunked);
+              --selfcal N, --plot PNG (top-down trajectory)
   flow        KLT: Shi-Tomasi corners on A tracked into B
   vo          KLT visual odometry over an image directory (--engine host|scan),
               or metric stereo VO with --right
@@ -23,9 +27,13 @@ ported, with the JAX package's argument names and JSON output:
   merge       merge two saved maps into one
   serve       HTTP localization service over a saved map
 
-Everything runs on the card unless ``--device cpu`` is given. An option or
-subcommand whose module is not ported yet raises ``NotImplementedError``
-naming its ROADMAP item; none is dropped silently. Config: a JSON or YAML
+Everything runs on the card unless ``--device cpu`` is given. What is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP item, and
+nothing is dropped silently: ``slam --mesh`` and its options
+(``--checkpoint-interval``, ``--resume``, ``--no-overlap``) wait for
+``dist/`` (Queue 1 item 1), and ``bench`` for the port's benchmark (Queue 1
+item 2). Figures (``--plot``, ``--plot-dir``) need matplotlib, imported
+only when one is asked for. Config: a JSON or YAML
 ``--config`` file and dotted ``--set`` overrides, e.g.
 ``--set ba.interval=3 --set matching.ratio=0.75``.
 """
@@ -282,10 +290,20 @@ def _add_export_args(sp):
     sp.add_argument("--export-kitti", help="write the trajectory in KITTI format")
 
 
-def _refuse_unported(args):
-    """Raise on the map-level options whose modules are not ported."""
-    if getattr(args, "selfcal", 0):
-        raise not_ported("--selfcal (ba/calibrate.py)", 4)
+def _run_selfcal(rec, cam, cfg, rounds: int, metrics):
+    """--selfcal N: the in-place intrinsics refinement post-pass
+    (ba/calibrate.py); returns the refined camera and the JAX CLI's JSON
+    summary."""
+    from fastmatch_tpu_torch.ba.calibrate import self_calibrate
+
+    cam2, hist = self_calibrate(rec, cam, cfg, rounds=rounds, metrics=metrics)
+    vec = cam2.intrinsics_vector()
+    return cam2, {
+        "fx": round(float(vec[0]), 3), "fy": round(float(vec[1]), 3),
+        "cx": round(float(vec[2]), 3), "cy": round(float(vec[3]), 3),
+        "dist": [round(float(v), 6) for v in vec[4:]],
+        "mean_px2": round(hist[-1][0], 6),
+    }
 
 
 def _run_exports(args, rec, cam):
@@ -319,15 +337,22 @@ def cmd_reconstruct(args):
     from fastmatch_tpu_torch.pipeline.reconstruct import reconstruct
     from fastmatch_tpu_torch.utils.metrics import profile_trace
 
-    if args.mode == "global":
-        raise not_ported("reconstruct --mode global (pipeline/global_sfm.py)", 4)
-    _refuse_unported(args)
     cfg = _load_config(args)
     secs = {}
     feats, cam = _load_features(args, cfg, secs)
     metrics = _metrics(args)
+    dev = _device(args)
     with profile_trace(args.profile_dir):
-        rec = reconstruct(feats, cam, cfg, metrics=metrics, device=_device(args))
+        if args.mode == "global":
+            from fastmatch_tpu_torch.pipeline.global_sfm import global_reconstruct
+
+            rec = global_reconstruct(feats, cam, cfg, metrics=metrics, window=args.window,
+                                     device=dev)
+        else:
+            rec = reconstruct(feats, cam, cfg, metrics=metrics, device=dev)
+    selfcal = None
+    if args.selfcal:
+        cam, selfcal = _run_selfcal(rec, cam, cfg, args.selfcal, metrics)
     gps = _run_gps(args, rec, cfg, metrics) if args.gps else None
     if metrics:
         metrics.log("stage_seconds", **{**rec.stage_seconds, **secs})
@@ -337,19 +362,18 @@ def cmd_reconstruct(args):
     _save_checkpoint(args, rec)
     _run_exports(args, rec, cam)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
-                      "n_obs": rec.n_obs, "out": args.out, **({"gps": gps} if gps else {})}))
+                      "n_obs": rec.n_obs, "out": args.out,
+                      **({"selfcal": selfcal} if selfcal else {}),
+                      **({"gps": gps} if gps else {})}))
 
 
 def cmd_slam(args):
     from fastmatch_tpu_torch.pipeline.slam import SlamConfig
 
     if args.mesh:
-        raise not_ported("slam --mesh (dist/pipeline.py)", 9)
+        raise not_ported("slam --mesh (dist/pipeline.py)", 1)
     if args.checkpoint_interval or args.resume or args.no_overlap:
-        raise not_ported("--checkpoint-interval/--resume/--no-overlap (with --mesh)", 9)
-    if args.plot:
-        raise not_ported("slam --plot (utils/viz.py)", 4)
-    _refuse_unported(args)
+        raise not_ported("--checkpoint-interval/--resume/--no-overlap (with --mesh)", 1)
     cfg = _load_config(args)
     scfg = SlamConfig(window=args.window, loop_gap=args.loop_gap,
                       loop_min_votes=args.loop_min_votes)
@@ -383,6 +407,9 @@ def cmd_slam(args):
 
         out = slam(feats, cam, cfg, scfg, **kw)
     rec = out.rec
+    selfcal = None
+    if args.selfcal:
+        cam, selfcal = _run_selfcal(rec, cam, cfg, args.selfcal, metrics)
     gps = _run_gps(args, rec, cfg, metrics, frame_seq=out.frame_seq) if args.gps else None
     if metrics:
         metrics.log("stage_seconds", **{**rec.stage_seconds, **secs})
@@ -391,11 +418,17 @@ def cmd_slam(args):
         _save_map(args.out, rec)
     if args.trajectory:
         _write_tum(args.trajectory, rec)
+    if args.plot:
+        from fastmatch_tpu_torch.utils.viz import plot_trajectory
+
+        plot_trajectory(rec.camera_centers(), args.plot)
     _save_checkpoint(args, rec)
     _run_exports(args, rec, cam)
     print(json.dumps({"n_frames": rec.n_frames, "n_points": int(rec.pt_mask.sum()),
                       "loop_closures": len(out.loop_edges), "pgo_runs": out.pgo_runs,
-                      "engine": engine, "out": args.out, **({"gps": gps} if gps else {})}))
+                      "engine": engine, "out": args.out,
+                      **({"selfcal": selfcal} if selfcal else {}),
+                      **({"gps": gps} if gps else {})}))
 
 
 def _image_dir(path):
@@ -678,8 +711,6 @@ def _load_traj(path: str) -> np.ndarray:
 
 def cmd_evaluate(args):
     cfg = _load_config(args)
-    if args.plot_dir:
-        raise not_ported("evaluate --plot-dir (utils/viz.py)", 4)
     if args.dataset == "traj":
         import torch
 
@@ -705,7 +736,7 @@ def cmd_evaluate(args):
     size = (args.resize, args.resize) if args.resize else None
     results, agg = evaluate_pairs(pairs, sift_cfg=cfg.sift, ratio=cfg.matching.ratio,
                                   tol=args.tol, backend=cfg.matching.backend, size=size,
-                                  device=_device(args))
+                                  plot_dir=args.plot_dir, device=_device(args))
     for r in results:
         print(json.dumps(r))
     print(json.dumps({"aggregate": agg}))
@@ -810,8 +841,8 @@ def cmd_serve(args):
 
 
 def cmd_bench(args):
-    raise NotImplementedError("bench is not yet ported: the port has no benchmark "
-                              "(BENCHMARK.json) yet; python3 chip_smoke.py times its kernels")
+    raise not_ported("bench (the port has no benchmark, BENCHMARK.json, yet; python3 "
+                     "chip_smoke.py times its kernels)", 2)
 
 
 def main(argv=None):
@@ -847,14 +878,18 @@ def main(argv=None):
     sp.add_argument("input", help="image dir or features .npz")
     _add_camera_args(sp)
     sp.add_argument("--mode", choices=["incremental", "global"], default="incremental",
-                    help="incremental SfM; global: not yet ported")
+                    help="incremental SfM (default) or global SfM (rotation and "
+                    "translation averaging over a view graph, one global BA: "
+                    "pipeline/global_sfm.py)")
     sp.add_argument("--window", type=int, default=8, help="global mode's view-graph window")
     sp.add_argument("--out")
     sp.add_argument("--checkpoint", metavar="DIR",
                     help="save the map here (map.pt, pipeline/checkpoint.py)")
     sp.add_argument("--metrics", help="write JSONL metrics here")
     sp.add_argument("--profile-dir", help="capture a torch.profiler trace here")
-    sp.add_argument("--selfcal", type=int, default=0, metavar="N")
+    sp.add_argument("--selfcal", type=int, default=0, metavar="N",
+                    help="after mapping, refine the camera intrinsics against the map: N "
+                    "rounds of intrinsics refinement alternated with global BA")
     _add_gps_args(sp)
     _add_export_args(sp)
     sp.set_defaults(fn=cmd_reconstruct)
@@ -877,12 +912,14 @@ def main(argv=None):
     sp.add_argument("--checkpoint-interval", type=int, default=0)
     sp.add_argument("--resume")
     sp.add_argument("--out")
-    sp.add_argument("--plot")
+    sp.add_argument("--plot", help="write a top-down trajectory PNG here (matplotlib)")
     sp.add_argument("--trajectory", help="write TUM-format trajectory here")
     sp.add_argument("--checkpoint", metavar="DIR",
                     help="save the map here (map.pt, pipeline/checkpoint.py)")
     sp.add_argument("--metrics", help="write JSONL metrics here")
-    sp.add_argument("--selfcal", type=int, default=0, metavar="N")
+    sp.add_argument("--selfcal", type=int, default=0, metavar="N",
+                    help="after mapping, refine the camera intrinsics against the map: N "
+                    "rounds of intrinsics refinement alternated with global BA")
     _add_gps_args(sp)
     _add_export_args(sp)
     sp.set_defaults(fn=cmd_slam)
@@ -893,7 +930,8 @@ def main(argv=None):
     sp.add_argument("--n-synth", type=int, default=3)
     sp.add_argument("--tol", type=float, default=3.0)
     sp.add_argument("--resize", type=int, default=0)
-    sp.add_argument("--plot-dir")
+    sp.add_argument("--plot-dir", help="write per-pair match figures and a "
+                    "precision/recall summary here (matplotlib)")
     sp.add_argument("--est", help="traj: estimated trajectory (.npz 'centers' or TUM)")
     sp.add_argument("--gt", help="traj: ground-truth trajectory (same formats)")
     sp.add_argument("--rpe-delta", type=int, default=1)

@@ -160,11 +160,13 @@ def load_tum_trajectory(path: str):
 
 
 def evaluate_pairs(pairs, sift_cfg=None, ratio: float = 0.8, tol: float = 3.0,
-                   backend: str = "auto", size=None, device=None):
+                   backend: str = "auto", size=None, plot_dir=None, device=None):
     """detect -> match -> precision/recall over image pairs on ``device``.
     Returns (per-pair dicts, aggregate dict); pairs with no prediction (NaN
     precision) or no ground truth (NaN recall) are left out of the means
-    and counted apart."""
+    and counted apart. ``plot_dir``: also write each pair's side-by-side
+    match figure (lines coloured by ground-truth correctness) and a
+    precision/recall bar chart, ``summary.png``, there (utils/viz.py)."""
     import torch
 
     from fastmatch_tpu_torch.core.device import resolve_device
@@ -193,6 +195,16 @@ def evaluate_pairs(pairs, sift_cfg=None, ratio: float = 0.8, tol: float = 3.0,
         ev = match_precision_recall(kpa.xy, kpa.mask, kpb.xy, kpb.mask, m.idx, m.valid,
                                     torch.from_numpy(H_ab.astype(np.float32)).to(dev),
                                     tol=tol)
+        if plot_dir is not None:
+            import os
+
+            from fastmatch_tpu_torch.utils.viz import draw_matches
+
+            os.makedirs(plot_dir, exist_ok=True)
+            safe = str(pair.name).replace("/", "_").replace(" ", "_")
+            draw_matches(ia, kpa.xy.cpu().numpy(), ib, kpb.xy.cpu().numpy(),
+                         m.idx.cpu().numpy(), m.valid.cpu().numpy(),
+                         os.path.join(plot_dir, f"{safe}.png"), H_ab=H_ab, tol=tol)
         results.append({"pair": pair.name, "precision": float(ev.precision),
                         "recall": float(ev.recall), "n_correct": int(ev.n_correct),
                         "n_predicted": int(ev.n_predicted), "n_gt": int(ev.n_gt)})
@@ -208,4 +220,10 @@ def evaluate_pairs(pairs, sift_cfg=None, ratio: float = 0.8, tol: float = 3.0,
         "n_predicted": int(sum(r["n_predicted"] for r in results)),
         "n_gt": int(sum(r["n_gt"] for r in results)),
     }
+    if plot_dir is not None and results:
+        import os
+
+        from fastmatch_tpu_torch.utils.viz import plot_match_stats
+
+        plot_match_stats(results, os.path.join(plot_dir, "summary.png"))
     return results, agg
