@@ -93,7 +93,13 @@ Phases, in order; any failure exits nonzero before the result line:
    index built twice, both search routes, 4 views served from the IVF
    index, K2 at 2048 x 4,000,000 and K4 at k-means' shape against their
    plain versions, and the IVF agreement at 262,144 rows against the JAX
-   package's (``tools/jax_city_reference.py``).
+   package's (``tools/jax_city_reference.py``);
+12. the distributed engine (``dist_paths``) at world size 1 over NCCL, the
+   one-card ceiling: the ring matcher at 2048 x 262,144 and its ring steps
+   over 4 and 8 slabs (K2), sharded BA on the main path's problem (K4, K5),
+   ``slam_distributed`` on the 56 config-4 frames beside ``slam_device``
+   (overlapped, resumed), the data-parallel matcher (K1) and stereo, sharded
+   retrieval, the watchdog, and ``slam --mesh bank=1`` through the CLI.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1392,13 +1398,15 @@ def check_k3(rng):
         idx = [_k3_flat_index(s) for s in sets]
         take = [torch.take(s.stack, i) for s, i in zip(sets, idx)]
         equal, equal_take = _k3_same(got, ref), _k3_same(got, take)
+        before = k3.gather_patch_sets.launches
         us, seen = device_us(lambda: k3.gather_patch_sets(sets), K3_KERNELS, n=50)
+        launched = k3.gather_patch_sets.launches - before
         b_ms, b_by = bound(_k3_bytes(sets))
         d = dict(what=what, segments=[dict(stack=list(s.stack.shape), K=s.lyx.shape[0],
                                            P=s.patch, pad=s.pad) for s in sets],
                  bit_equal=equal, equal_to_take=equal_take, device_us_per_launch=us,
-                 profiled_launches=seen, bound_ms=b_ms, bound_by=b_by,
-                 bytes_written=sum(4 * s.lyx.shape[0] * s.patch ** 2 for s in sets),
+                 profiled_launches=seen, wrapper_launches=launched, bound_ms=b_ms,
+                 bound_by=b_by, bytes_written=sum(4 * s.lyx.shape[0] * s.patch ** 2 for s in sets),
                  ms=cuda_ms(lambda: k3.gather_patch_sets(sets)),
                  plain_ms=cuda_ms(lambda: k3.gather_patch_sets_plain(sets), batches=3, reps=3),
                  library_ms=cuda_ms(lambda: [torch.take(s.stack, i) for s, i in zip(sets, idx)]),
@@ -1406,9 +1414,13 @@ def check_k3(rng):
         d["share_of_bound"] = b_ms * 1e3 / us if us else None
         details.append(d)
         log("K3", json.dumps(d))
-        if not (equal and equal_take) or seen != 50:
+        # One launch a call, by the wrapper's counter over the warm-up and
+        # the 50 profiled calls; the profiler, which may drop events, must
+        # see at least one and no more than 50.
+        if not (equal and equal_take) or launched != 51 or not 1 <= seen <= 50:
             raise AssertionError(f"K3 {what}: bit-equal to plain {equal}, to torch.take "
-                                 f"{equal_take}, {seen} launches in 50 calls")
+                                 f"{equal_take}, {launched} launches in 51 calls "
+                                 f"(the profiler saw {seen})")
         if what == "sift_frame":
             entry = dict(max_abs_err=0.0, ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms,
                          bound_by=b_by, library_ms=d["library_ms"])
@@ -1419,21 +1431,27 @@ def check_k3(rng):
         idx = [_k3_flat_index(s) for s in sets]
         take = [torch.take(s.stack, i) for s, i in zip(sets, idx)]
         equal, equal_take = _k3_same(got, ref), _k3_same(got, take)
+        before = k3.gather_patch_sets.launches
         us, seen = device_us(lambda: k3.gather_patch_sets(sets), K3_KERNELS, n=50)
+        launched = k3.gather_patch_sets.launches - before
         b_ms, b_by = bound(_k3_bytes(sets))
         d = dict(what=what, segments=[dict(stack=list(s.stack.shape), K=s.lyx.shape[0],
                                            P=s.patch, pad=s.pad) for s in sets],
                  bit_equal=equal, equal_to_take=equal_take, device_us_per_launch=us,
-                 profiled_launches=seen, bound_ms=b_ms, bound_by=b_by,
-                 ms=cuda_ms(lambda: k3.gather_patch_sets(sets)),
+                 profiled_launches=seen, wrapper_launches=launched, bound_ms=b_ms,
+                 bound_by=b_by, ms=cuda_ms(lambda: k3.gather_patch_sets(sets)),
                  plain_ms=cuda_ms(lambda: k3.gather_patch_sets_plain(sets)),
                  library_ms=cuda_ms(lambda: [torch.take(s.stack, i) for s, i in zip(sets, idx)]),
                  host_us=host_us(lambda: k3.gather_patch_sets(sets), n=500))
         details.append(d)
         log("K3", json.dumps(d))
-        if not (equal and equal_take) or seen != 50:
+        # One launch a call, by the wrapper's counter over the warm-up and
+        # the 50 profiled calls; the profiler, which may drop events, must
+        # see at least one and no more than 50.
+        if not (equal and equal_take) or launched != 51 or not 1 <= seen <= 50:
             raise AssertionError(f"K3 {what}: bit-equal to plain {equal}, to torch.take "
-                                 f"{equal_take}, {seen} launches in 50 calls")
+                                 f"{equal_take}, {launched} launches in 51 calls "
+                                 f"(the profiler saw {seen})")
 
     bad = []
     for what, sets, want in _k3_edge_sets(rng, dev):
@@ -2818,22 +2836,15 @@ def _ate_np(est, gt):
     return ate(est, gt)
 
 
-def grouped_ba(rec):
-    """``ba_solve(grouped="auto")`` against the default on the main path's
-    final BA problem (its live observation table, BA's config), with its
-    points and non-gauge camera centres moved by seeded noise of 1% of
-    their spread so that LM iterates. Gates: the grouped and the default
-    assembly of that problem each within GROUPED_ASSEMBLY_RTOL of the
-    float64 sums (``_assemblies``); the final costs within
-    GROUPED_BA_RTOL; two grouped solves bit-identical (the grouped path
-    has no scatter; K4 sums the PCG loop in a fixed order)."""
+def jittered_ba_problem(rec):
+    """The main path's final BA problem (its live observation table), with
+    its points and non-gauge camera centres moved by seeded noise of 1% of
+    their spread so that LM iterates."""
     import numpy as np
     import torch
 
-    from fastmatch_tpu_torch.ba.lm import ba_solve
     from fastmatch_tpu_torch.pipeline.tracker import compact_obs
 
-    cfg = rec.cfg.ba
     prob = compact_obs(rec.ba_problem(), int(rec.obs_mask.sum()))
     rng = np.random.default_rng(0)
 
@@ -2843,8 +2854,25 @@ def grouped_ba(rec):
         return torch.from_numpy((x + noise * mask[:, None]).astype(np.float32)).to(DEV)
 
     moving = (prob.cam_mask & ~prob.fixed_cams).cpu().numpy()
-    prob = prob._replace(points=jitter(prob.points, prob.pt_mask.cpu().numpy()),
+    return prob._replace(points=jitter(prob.points, prob.pt_mask.cpu().numpy()),
                          poses=prob.poses._replace(t=jitter(prob.poses.t, moving)))
+
+
+def grouped_ba(rec):
+    """``ba_solve(grouped="auto")`` against the default on the main path's
+    final BA problem (its live observation table, BA's config), with its
+    points and non-gauge camera centres moved by seeded noise of 1% of
+    their spread so that LM iterates. Gates: the grouped and the default
+    assembly of that problem each within GROUPED_ASSEMBLY_RTOL of the
+    float64 sums (``_assemblies``); the final costs within
+    GROUPED_BA_RTOL; two grouped solves bit-identical (the grouped path
+    has no scatter; K4 sums the PCG loop in a fixed order)."""
+    import torch
+
+    from fastmatch_tpu_torch.ba.lm import ba_solve
+
+    cfg = rec.cfg.ba
+    prob = jittered_ba_problem(rec)
     huber = cfg.huber_px / float(rec.camera.fx)
     kw = dict(device=DEV, max_iters=cfg.max_iters, pcg_iters=cfg.pcg_iters,
               huber_delta_static=huber)
@@ -3260,12 +3288,13 @@ def _slabbed_k2_plain(a, b, b2m, a2m, slab=128):
     return i1, d1, d2, (best & 0xFFFFFFFF).to(torch.int32)
 
 
-def _k2_at(name, a, b, mask_a, mask_b, check=True, product_slab=None):
+def _k2_at(name, a, b, mask_a, mask_b, check=True, product_slab=None, time_plain=False):
     """K2 at one of the path's shapes: raw outputs against the plain
     version (in query slabs), wrapper ms, device us per call, the product
     alone (``product_only_ms``; over bank slabs of ``product_slab`` rows
-    into one buffer where the whole (N, M) product would not fit), and the
-    bound by fp32 operations."""
+    into one buffer where the whole (N, M) product would not fit), the
+    bound by fp32 operations, and with ``time_plain`` the plain version's
+    ms (``distance_topk_plain`` in one piece)."""
     import torch
 
     from fastmatch_tpu_torch.kernels import distance_topk as k2
@@ -3297,9 +3326,12 @@ def _k2_at(name, a, b, mask_a, mask_b, check=True, product_slab=None):
                 torch.matmul(a, bs.T, out=buf[:, :bs.shape[0]])
 
         d["product_only_ms"] = cuda_ms(product, batches=3, reps=1)
+    if time_plain:
+        d["plain_ms"] = cuda_ms(lambda: k2.distance_topk_plain(a, b, b2m, a2m), batches=2,
+                                reps=1)
     d["bound_ms"], d["bound_by"] = bound(4 * (n * 128 + m * 128 + n + m) + 4 * (3 * n + m),
                                          2.0 * n * m * a.shape[1])
-    log("map_services K2", json.dumps(d))
+    log("K2 at", json.dumps(d))
     return d
 
 
@@ -4133,6 +4165,409 @@ def global_sfm_selfcal(scene, views):
     return launches, stats
 
 
+# -- phase 12: the distributed engine at world size 1 ------------------------------
+
+# (a) the ring: 2048 queries against a 262,144 x 128 bank (its first
+# DIST_BANK_LIVE rows live), whole through ``match_pair_sharded`` and as
+# the ring steps of 4 and 8 slabs, from each owner in turn.
+DIST_QUERIES = 2048
+DIST_BANK = 262_144
+DIST_BANK_LIVE = 250_000
+DIST_SLABS = (4, 8)
+# (b) and (c): rtol of the partitioned solve's cost against ``ba_solve``'s;
+# camera centres against ``slam_device``'s; landmarks the run must hold.
+DIST_PARTITION_RTOL = 1e-4
+DIST_K2_ATOL = 1e-5          # K2 raw distances against distance_topk_plain
+DIST_CENTER_TOL = 5e-2
+DIST_MIN_LANDMARKS = 50
+DIST_SNAPSHOT_FID = 28
+# (e) VLAD-sized +-1 rows: every score an exact integer.
+DIST_VLAD = dict(queries=16, rows=8192, dim=4096, topk=5, slabs=4)
+# (f) the watchdog: its timeout, and the GPU cycles the stream sleeps.
+WATCHDOG_TIMEOUT_S = 0.5
+WATCHDOG_SLEEP_CYCLES = 4_000_000_000
+
+
+def dist_paths(rec, scene56, feats56):
+    """The distributed engine (``fastmatch_tpu_torch.dist``) on one H100 at
+    world size 1 over NCCL, through ``initialize_distributed()`` with none
+    of its variables set: the same code as on many ranks, with every
+    collective a one-rank NCCL call. Each run has the kernels' launch
+    counts set to 0 just before and read just after. Runs and gates:
+
+    (a) ``match_pair_sharded``, 2048 queries against a 262,144 x 128 bank,
+        at the defaults and as the SLAM retrieval calls it (ratio 1, no
+        cross-check: every live query valid): decisions, idx and dist
+        equal to the unsharded K2 route (``match_pair_fused``), one K2
+        launch a call; then ``ring_step`` over 4
+        and 8 slabs of the bank from each owner in turn, the slabs'
+        ``nnb`` put together for the cross-check: the same Matches, K2
+        launches = slabs x owners; K2 at the unsharded shape and at one
+        slab of each count against its plain version (``_k2_at``: idx1 and
+        nnb equal, distances within DIST_K2_ATOL), with its device time;
+    (b) ``ba_solve_sharded`` on the main path's final BA problem
+        (``jittered_ba_problem``, as ``grouped_ba`` takes it):
+        bit-identical to ``ba_solve``; with ``partition_problem(.., 1)``
+        (presorted) the cost within DIST_PARTITION_RTOL; K4 and K5
+        launched;
+    (c) ``slam_distributed`` on phase 7's 56-frame features (config 4's
+        widths) with overlap on and snapshots, beside ``slam_device``:
+        every frame tracked, the same frame sequence, camera centres
+        within DIST_CENTER_TOL, more than DIST_MIN_LANDMARKS landmarks;
+        resumed from the snapshot after frame id DIST_SNAPSHOT_FID:
+        bit-identical; K2, K4 and K5 launched, K1 and K3 not;
+    (d) ``match_batch_dp`` at config 2's size (64 x 2048, 1500 live):
+        equal to ``match_batch`` (K1, exact); ``stereo_batch`` on the
+        ``data`` axis' slices, gathered: bit-equal to ``stereo_batch``;
+    (e) ``retrieve_sharded`` on +-1 rows: bit-equal to ``vlad.retrieve``,
+        and so is the merge of 4 slabs' ``retrieve_local``;
+    (f) the watchdog raises ``CollectiveTimeout`` on a stream kept busy
+        past its timeout (``torch.cuda._sleep``), and passes a fast wait;
+    (g) the CLI: ``slam --mesh bank=1 --no-overlap --checkpoint-interval``
+        on the 56 frames' .npz: bit-identical to (c)'s overlapped run; then
+        ``--resume``: bit-identical again;
+    (h) ``OverlapScheduler`` (a product on the side stream, a reduction on
+        the caller's) equal to the serial schedule bit for bit.
+
+    Returns (the (c) run's launches, stats)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fastmatch_tpu_torch.ba.lm import ba_solve
+    from fastmatch_tpu_torch.core.camera import Pinhole
+    from fastmatch_tpu_torch.core.containers import Descriptors
+    from fastmatch_tpu_torch.dense.stereo import stereo_batch
+    from fastmatch_tpu_torch.dist.bootstrap import initialize_distributed
+    from fastmatch_tpu_torch.dist.dist_ba import ba_solve_sharded
+    from fastmatch_tpu_torch.dist.mesh import batch_sharding, make_mesh
+    from fastmatch_tpu_torch.dist.overlap import OverlapScheduler
+    from fastmatch_tpu_torch.dist.partition import partition_problem
+    from fastmatch_tpu_torch.dist.pipeline import DistConfig, slam_distributed
+    from fastmatch_tpu_torch.dist.retrieve import (retrieve_local, retrieve_merge,
+                                                   retrieve_sharded)
+    from fastmatch_tpu_torch.dist.sharded_match import (match_batch_dp, match_pair_sharded,
+                                                        ring_start, ring_step)
+    from fastmatch_tpu_torch.dist.watchdog import CollectiveTimeout, Watchdog
+    from fastmatch_tpu_torch.kernels import distance_topk as k2
+    from fastmatch_tpu_torch.matching.matcher import BIG, match_batch, ratio_sq
+    from fastmatch_tpu_torch.matching.vlad import retrieve
+    from fastmatch_tpu_torch.pipeline.config import MapConfig, PipelineConfig
+    from fastmatch_tpu_torch.pipeline.slam import SlamConfig
+    from fastmatch_tpu_torch.pipeline.slam_device import slam_device
+
+    wrappers = _kernel_wrappers()
+    dev = torch.device(DEV)
+    fails, stats, seconds = [], {}, {}
+
+    def counted(name, fn):
+        _reset_launches(wrappers)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        la = _read_launches(wrappers)
+        stats.setdefault("launches", {})[name] = la
+        log(f"dist_paths {name}: {seconds[name]:.3f} s, launches {json.dumps(la)}")
+        return out, la
+
+    unset = [k for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID") if os.environ.get(k)]
+    if unset:
+        raise AssertionError(f"dist_paths: {unset} set; the phase runs at world size 1")
+    t0 = time.perf_counter()
+    status = initialize_distributed(device=DEV)
+    stats["nccl_group_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    stats["mesh_setup_s"] = time.perf_counter() - t0
+    stats["status"] = dict(status, backend=dist.get_backend())
+    if dist.get_backend() != "nccl" or status["process_count"] != 1:
+        fails.append(f"process group {stats['status']}, want NCCL at world size 1")
+
+    # (a) The ring.
+    rng = np.random.default_rng(12)
+    q, mq, bank, mb = _descriptor_sets(rng, DIST_QUERIES, DIST_BANK, DIST_BANK_LIVE,
+                                       DIST_QUERIES * 3 // 4)
+    da = Descriptors(torch.from_numpy(q).to(dev), torch.from_numpy(mq).to(dev))
+    db = Descriptors(torch.from_numpy(bank).to(dev), torch.from_numpy(mb).to(dev))
+    ref = k2.match_pair_fused(da, db)
+    ref1 = k2.match_pair_fused(da, db, ratio=1.0, cross_check=False)
+    (got, got1), la = counted("ring", lambda: (
+        match_pair_sharded(da, db, mesh),
+        match_pair_sharded(da, db, mesh, ratio=1.0, cross_check=False)))
+    ring = dict(n_valid=int(ref.valid.sum()), n_valid_ratio1=int(ref1.valid.sum()),
+                k2_launches=la["distance_topk"],
+                equal=_decisions_equal(got, ref) and torch_all(got.dist == ref.dist),
+                equal_ratio1=_decisions_equal(got1, ref1) and torch_all(got1.dist == ref1.dist))
+    if not (ring["equal"] and ring["equal_ratio1"]) or la["distance_topk"] != 2:
+        fails.append(f"(a) match_pair_sharded: {ring}")
+    a, b = da.data, db.data
+    a2m = torch.where(da.mask, (a * a).sum(-1), BIG).contiguous()
+    b2m = torch.where(db.mask, (b * b).sum(-1), BIG).contiguous()
+    n = a.shape[0]
+    slabs_out = {}
+    for slabs in DIST_SLABS:
+        ms = DIST_BANK // slabs
+
+        def run_ring(slabs=slabs, ms=ms):
+            outs = []
+            for start in range(slabs):
+                acc, nnb = ring_start(n, dev), [None] * slabs
+                for s in range(slabs):
+                    owner = (start - s) % slabs
+                    acc, nnb[owner] = ring_step(acc, a, a2m, b[owner * ms:(owner + 1) * ms],
+                                                b2m[owner * ms:(owner + 1) * ms], owner)
+                outs.append((acc, torch.cat(nnb)))
+            return outs
+
+        outs, la = counted(f"ring_steps_{slabs}", run_ring)
+        same = True
+        for (d1, i1, d2, _), nnb in outs:
+            ok = da.mask & (d1 < ratio_sq(0.8) * d2) & (d2 < BIG)
+            ok = ok & (nnb[i1.long()] == torch.arange(n, dtype=torch.int32, device=dev))
+            same &= (torch_all(ok == ref.valid) and torch_all(i1[ok] == ref.idx[ok])
+                     and torch_all(d1[ok] == ref.dist[ok]))
+        slabs_out[slabs] = dict(equal=bool(same), k2_launches=la["distance_topk"],
+                                want_launches=slabs * slabs,
+                                slab_k2=_k2_at(f"ring_slab_{slabs}", a, b[:ms], da.mask,
+                                               db.mask[:ms], time_plain=True))
+        if not same or la["distance_topk"] != slabs * slabs:
+            fails.append(f"(a) ring steps over {slabs} slabs: equal {same}, K2 launches "
+                         f"{la['distance_topk']} != {slabs * slabs}")
+    ring["unsharded_k2"] = _k2_at("ring_unsharded", a, b, da.mask, db.mask, time_plain=True)
+    ring["slabs"] = slabs_out
+    # K2 against its plain version at the ring's shapes: the ring itself is
+    # held above against the same kernel, unsharded.
+    for k2d in [ring["unsharded_k2"]] + [v["slab_k2"] for v in slabs_out.values()]:
+        if not (k2d["idx1_equal"] and k2d["nnb_equal"]
+                and k2d["max_abs_err"] <= DIST_K2_ATOL):
+            fails.append(f"(a) K2 at {k2d['shape']} differs from its plain version: "
+                         f"idx1 {k2d['idx1_equal']}, nnb {k2d['nnb_equal']}, "
+                         f"max abs err {k2d['max_abs_err']} > {DIST_K2_ATOL}")
+    stats["ring"] = ring
+    log("dist_paths ring", json.dumps(ring))
+    del da, db, a, b, a2m, b2m, ref, got, ref1, got1
+
+    # (b) Sharded BA on the main path's final problem, jittered.
+    cfg = rec.cfg.ba
+    prob = jittered_ba_problem(rec)
+    kw = dict(max_iters=cfg.max_iters, pcg_iters=cfg.pcg_iters,
+              huber_delta_static=cfg.huber_px / float(rec.camera.fx))
+    single = ba_solve(prob, device=DEV, **kw)
+    sharded, la = counted("sharded_ba", lambda: ba_solve_sharded(prob, mesh, **kw))
+    part_prob, _ = partition_problem(prob, 1)
+    part = ba_solve_sharded(part_prob, mesh, presorted=True, **kw)
+    same = all(torch.equal(x, y) for x, y in (
+        (sharded.poses.R, single.poses.R), (sharded.poses.t, single.poses.t),
+        (sharded.points, single.points), (sharded.cost, single.cost)))
+    ba = dict(obs=int(prob.obs.mask.shape[0]), cost0=float(single.cost0),
+              cost=float(single.cost), sharded_bit_identical=bool(same),
+              partition_cost=float(part.cost), iters=single.iters,
+              k4_launches=la["sorted_segment_sum"], k5_launches=la["sorted_gather_rows"])
+    stats["sharded_ba"] = ba
+    log("dist_paths sharded_ba", json.dumps(ba))
+    if not same:
+        fails.append("(b) ba_solve_sharded differs from ba_solve at world size 1")
+    if not abs(ba["partition_cost"] - ba["cost"]) <= DIST_PARTITION_RTOL * abs(ba["cost"]):
+        fails.append(f"(b) partitioned cost {ba['partition_cost']} vs {ba['cost']}")
+    if la["sorted_segment_sum"] <= 0 or la["sorted_gather_rows"] <= 0:
+        fails.append(f"(b) K4/K5 not launched: {la}")
+
+    # (c) SLAM on the 56 frames, and (g) the CLI on their .npz.
+    cfg56 = PipelineConfig(map=MapConfig(max_frames=64))
+    scfg = SlamConfig()
+    cam = Pinhole.from_K(scene56.K)
+    N = len(feats56)
+
+    def arrays(out):
+        r = out.rec
+        return dict(R=r.R[:r.n_frames], t=r.t[:r.n_frames], points=r.points[r.pt_mask],
+                    centers=r.camera_centers())
+
+    def same_arrays(x, y):
+        return all(np.array_equal(x[k], y[k]) for k in ("R", "t", "points", "centers"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        ref_out, _ = counted("slam_device", lambda: slam_device(feats56, cam, cfg56, scfg,
+                                                                device=DEV))
+        over, la = counted("slam_distributed", lambda: slam_distributed(
+            feats56, cam, cfg56, scfg, DistConfig(overlap=True, checkpoint_dir=ck,
+                                                  checkpoint_interval=DIST_SNAPSHOT_FID),
+            mesh=mesh))
+        resumed, _ = counted("slam_distributed_resumed", lambda: slam_distributed(
+            feats56, cam, cfg56, scfg, DistConfig(), mesh=mesh, resume_from=ck))
+        centers, ref_centers = over.rec.camera_centers(), ref_out.rec.camera_centers()
+        gt = -np.einsum("fji,fj->fi", scene56.R, scene56.t)[np.asarray(over.frame_seq)]
+        from fastmatch_tpu_torch.utils.evaluation import ate_rmse
+
+        slam = dict(frames=N, frames_tracked=over.rec.n_frames,
+                    same_frame_seq=over.frame_seq == ref_out.frame_seq,
+                    loop_edges=[[int(e[0]), int(e[1])] for e in over.loop_edges],
+                    device_loop_edges=[[int(e[0]), int(e[1])] for e in ref_out.loop_edges],
+                    pgo_runs=over.pgo_runs,
+                    max_center_diff=float(np.abs(centers - ref_centers).max())
+                    if centers.shape == ref_centers.shape else None,
+                    landmarks=int(over.rec.pt_mask.sum()),
+                    ate=float(ate_rmse(centers, gt)),
+                    resumed_bit_identical=same_arrays(arrays(resumed), arrays(over)),
+                    launches=la)
+        if slam["frames_tracked"] != N or not np.isfinite(centers).all():
+            fails.append(f"(c) {slam['frames_tracked']}/{N} frames tracked, or non-finite")
+        if not slam["same_frame_seq"]:
+            fails.append("(c) frame sequence differs from slam_device's")
+        if slam["max_center_diff"] is None or not slam["max_center_diff"] <= DIST_CENTER_TOL:
+            fails.append(f"(c) centres {slam['max_center_diff']} from slam_device's")
+        if not slam["landmarks"] > DIST_MIN_LANDMARKS:
+            fails.append(f"(c) {slam['landmarks']} landmarks")
+        if not slam["resumed_bit_identical"]:
+            fails.append("(c) the resumed run differs from the uninterrupted one")
+        if la["batch_match"] or la["gather_patch_sets"] or la["gather_patches"]:
+            fails.append(f"(c) K1 or K3 launched: {la}")
+        fails += [f"(c) kernel {k} not launched" for k in
+                  ("distance_topk", "sorted_segment_sum", "sorted_gather_rows") if la[k] <= 0]
+
+        npz = os.path.join(tmp, "features.npz")
+        data = {"n_frames": N, "image_size": np.array(CONFIG4_SCENE["image_size"])}
+        for i, (xy, d, m) in enumerate(feats56):
+            data.update({f"xy_{i}": xy, f"desc_{i}": d, f"mask_{i}": m})
+        np.savez(npz, **data)
+        ck2 = os.path.join(tmp, "ck2")
+        base = ["--set", "map.max_frames=64", "slam", npz, "--focal", str(scene56.K[0, 0]),
+                "--mesh", "bank=1"]
+        serial_json, seconds["cli_slam_no_overlap"] = _cli(
+            base + ["--no-overlap", "--checkpoint", ck2, "--checkpoint-interval",
+                    str(DIST_SNAPSHOT_FID), "--out", os.path.join(tmp, "serial.npz")])
+        resumed_json, seconds["cli_slam_resume"] = _cli(
+            base + ["--resume", ck2, "--out", os.path.join(tmp, "resumed.npz")])
+        serial = dict(np.load(os.path.join(tmp, "serial.npz")))
+        cli_resumed = dict(np.load(os.path.join(tmp, "resumed.npz")))
+        slam.update(cli_json=serial_json[-1], overlap_equals_serial=same_arrays(
+            serial, arrays(over)), cli_resumed_bit_identical=same_arrays(cli_resumed, serial),
+            cli_resumed_json=resumed_json[-1])
+        if not slam["overlap_equals_serial"]:
+            fails.append("(c, g) the serial (--no-overlap) run differs from the overlapped one")
+        if not slam["cli_resumed_bit_identical"]:
+            fails.append("(g) slam --resume differs from the uninterrupted CLI run")
+    stats["slam"] = slam
+    log("dist_paths slam", json.dumps(slam))
+
+    # (d) Data-parallel routes.
+    qs, bs = _config2_sets(rng, CONFIG2["batch"], matched=True)
+    cap = CONFIG2["capacity"]
+
+    def padded(sets):
+        data = np.zeros((len(sets), cap, 128), np.float32)
+        mask = np.zeros((len(sets), cap), bool)
+        for i, s in enumerate(sets):
+            data[i, :len(s)], mask[i, :len(s)] = s, True
+        return Descriptors(torch.from_numpy(data).to(dev), torch.from_numpy(mask).to(dev))
+
+    A, B = padded(qs), padded(bs)
+    ref = match_batch(A, B, device=DEV)
+    got, la = counted("match_batch_dp", lambda: match_batch_dp(A, B, mesh))
+    dp = dict(n_valid=int(ref.valid.sum()), decisions_equal=_decisions_equal(got, ref),
+              bit_equal=torch_all(got.dist == ref.dist) and torch_all(got.idx == ref.idx),
+              k1_launches=la["batch_match"])
+    sh = batch_sharding(mesh)
+    stats["dp"] = dp
+    if not dp["decisions_equal"] or la["batch_match"] != 1:
+        fails.append(f"(d) match_batch_dp: {dp}")
+    del A, B, ref, got
+    left, right = _stereo_inputs(dev)
+    disp, valid = stereo_batch(left, right, device=DEV)
+
+    def dp_stereo():
+        d, v = stereo_batch(sh.shard(left), sh.shard(right), device=DEV)
+        return sh.gather(d), sh.gather(v)
+
+    (ddisp, dvalid), _ = counted("stereo_batch_dp", dp_stereo)
+    dp["stereo_bit_equal"] = torch.equal(ddisp, disp) and torch.equal(dvalid, valid)
+    dp["stereo_valid_share"] = float(valid.float().mean())
+    if not dp["stereo_bit_equal"]:
+        fails.append("(d) stereo_batch on the data axis differs from stereo_batch")
+    log("dist_paths dp", json.dumps(dp))
+
+    # (e) Retrieval on +-1 rows.
+    v = DIST_VLAD
+    g = torch.Generator(device=dev).manual_seed(12)
+    qv = torch.randint(0, 2, (v["queries"], v["dim"]), generator=g, device=dev).float() * 2 - 1
+    dbv = torch.randint(0, 2, (v["rows"], v["dim"]), generator=g, device=dev).float() * 2 - 1
+    dbv[1::97] = dbv[0]  # repeated rows: equal scores
+    dbm = torch.ones(v["rows"], dtype=torch.bool, device=dev)
+    dbm[5::13] = False
+    rv, rids = retrieve(qv, dbv, dbm, v["topk"])
+    (sv, sids), _ = counted("retrieve_sharded", lambda: retrieve_sharded(qv, dbv, dbm, mesh,
+                                                                         topk=v["topk"]))
+    rows = v["rows"] // v["slabs"]
+    parts = [retrieve_local(qv, dbv[i * rows:(i + 1) * rows], dbm[i * rows:(i + 1) * rows],
+                            i * rows, v["topk"]) for i in range(v["slabs"])]
+    mv, mids = retrieve_merge(torch.cat([p[0] for p in parts], 1),
+                              torch.cat([p[1] for p in parts], 1), v["topk"])
+    retr = dict(finite=torch_all(torch.isfinite(rv)),
+                bit_equal=torch.equal(sv, rv) and torch.equal(sids, rids),
+                slabs_bit_equal=torch.equal(mv, rv) and torch.equal(mids, rids),
+                tied_scores=int(v["queries"] * v["topk"] - torch.unique(rv).numel()))
+    stats["retrieve"] = retr
+    log("dist_paths retrieve", json.dumps(retr))
+    if not (retr["finite"] and retr["bit_equal"] and retr["slabs_bit_equal"]):
+        fails.append(f"(e) retrieve_sharded: {retr}")
+
+    # (f) The watchdog.
+    x = torch.ones(4, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(WATCHDOG_SLEEP_CYCLES)
+    y = x * 2
+    try:
+        Watchdog(WATCHDOG_TIMEOUT_S).wait(y)
+        raised = False
+    except CollectiveTimeout:
+        raised = True
+    detect_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    busy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = Watchdog(10.0).wait(x + 1)
+    fast_s = time.perf_counter() - t0
+    wd = dict(raised=raised, detect_s=detect_s, stream_busy_s=busy_s, fast_wait_s=fast_s,
+              fast_ok=torch_all(fast == 2))
+    stats["watchdog"] = wd
+    log("dist_paths watchdog", json.dumps(wd))
+    if not raised or busy_s <= WATCHDOG_TIMEOUT_S or not wd["fast_ok"]:
+        fails.append(f"(f) watchdog: {wd}")
+
+    # (h) The overlap scheduler's two streams against the serial schedule.
+    blocks = [torch.randn(2048, 2048, generator=g, device=dev) for _ in range(6)]
+    fa = lambda x: x @ x.T  # noqa: E731
+    fb = lambda y: torch.tanh(y).sum(0)  # noqa: E731
+    serial = [fb(fa(b)) for b in blocks]
+    over, _ = counted("overlap_scheduler", lambda: OverlapScheduler(fa, fb, device=dev).run(
+        blocks))
+    stats["overlap_scheduler_equal"] = all(torch.equal(o, r) for o, r in zip(over, serial))
+    if not stats["overlap_scheduler_equal"]:
+        fails.append("(h) OverlapScheduler differs from the serial schedule")
+
+    stats["seconds"] = seconds
+    dist.destroy_process_group()
+    if fails:
+        raise AssertionError(f"dist paths: {fails}")
+    return stats["launches"]["slam_distributed"], stats
+
+
+def _stereo_inputs(dev):
+    """Four rectified 640x480 pairs of the VO scene (left frames and the
+    rig's right frames at VO_BASELINE), as (B, H, W) tensors."""
+    import numpy as np
+    import torch
+
+    _, left, right = render_vo_scene(4)
+    return (torch.from_numpy(np.stack(left[:4])).to(dev),
+            torch.from_numpy(np.stack(right[:4])).to(dev))
+
+
 def main() -> int:
     import torch
 
@@ -4194,6 +4629,8 @@ def main() -> int:
     details["five_point"] = phase("five_point", five_point, scene, views)
     map_launches, details["map_services"] = phase("map_services", map_services, map120,
                                                   config4_inputs[2])
+    dist_launches, details["dist_paths"] = phase("dist_paths", dist_paths, rec,
+                                                 config4_inputs[0], config4_inputs[2])
     details["launches_by_path"] = dict(main_path_and_config2=dict(launches),
                                        config4_slam=config4_launches,
                                        config4_device_slam_120=device_slam_launches,
@@ -4203,7 +4640,8 @@ def main() -> int:
                                            "reconstruct", "match", "evaluate_synth")},
                                        **{f"vo_{k}": v for k, v in vo_launches.items()},
                                        map_services=map_launches,
-                                       global_sfm_selfcal=global_launches)
+                                       global_sfm_selfcal=global_launches,
+                                       dist_paths=dist_launches)
     log("phase_seconds", json.dumps(phase_s))
 
     meta = {
@@ -4224,7 +4662,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], **e,
                             map_services_launches=map_launches[name],
-                            global_sfm_launches=global_launches[name]))
+                            global_sfm_launches=global_launches[name],
+                            dist_paths_launches=dist_launches[name]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_details.json"), "w") as fh:
         json.dump(dict(kernels=kernels, checks=details, phase_seconds=phase_s,

@@ -4,7 +4,11 @@ Port of ``fastmatch_tpu/ba/lm.py``: each iteration solves the
 Schur-reduced camera system with PCG, back-substitutes the point update and
 accepts or rejects with multiplicative damping; the gauge is fixed by
 freezing ``fixed_cams``. The JAX ``lax.while_loop`` is a Python loop here,
-reading one (accept, done) pair back per iteration. ``grouped`` switches
+reading one (accept, done) pair back per iteration. ``reduce`` is the
+cross-rank hook of the observation-sharded solve (``dist/dist_ba.py``, the
+JAX package's ``axis_name``): every camera and point sum and the cost pass
+through it, so the (accept, done) pair that picks the LM branch reads the
+reduced cost and every rank takes the same branch. ``grouped`` switches
 the assembly to the scatter-free grouped layout (``ba/schur.py``), as in
 the JAX package; ``FASTMATCH_CHECKIFY=1`` checks the observation table's
 indices before the solve and its outputs after it (``utils/guards.py``).
@@ -12,7 +16,7 @@ indices before the solve and its outputs after it (``utils/guards.py``).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -43,11 +47,16 @@ class BAResult(NamedTuple):
 
 def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
                  lam0: float = 1e-3, huber_delta_static: float | None = None,
-                 rtol: float = 1e-6, grouped: GroupedObs | None = None) -> BAResult:
+                 rtol: float = 1e-6, grouped: GroupedObs | None = None,
+                 reduce: Callable[[torch.Tensor], torch.Tensor] | None = None) -> BAResult:
     """Run LM to convergence (or max_iters) on the problem's device.
     ``grouped``: the block-dense grouping of the problem's observation
     table (``group_observations``); the assembly then gathers and sums over
-    its fixed widths instead of segment sums (the PCG loop is the same)."""
+    its fixed widths instead of segment sums (the PCG loop is the same).
+    ``reduce`` (None: none): the sum over the ranks that each hold a slice
+    of the observation table; the grouped route takes none."""
+    if grouped is not None and reduce is not None:
+        raise ValueError("the grouped route is single-device: pass grouped or reduce, not both")
     n_cams, n_points = problem.n_cams, problem.n_points
     obs = problem.obs
     keys = segment_keys(obs, n_cams, n_points)
@@ -58,7 +67,7 @@ def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
         if grouped is not None:
             return assemble_grouped(SE3(R, t), X, obs, grouped, n_cams, n_points,
                                     huber_delta_static, keys)
-        return assemble(SE3(R, t), X, obs, n_cams, n_points, huber_delta_static, keys)
+        return assemble(SE3(R, t), X, obs, n_cams, n_points, huber_delta_static, keys, reduce)
 
     R, t, X = problem.poses.R, problem.poses.t, problem.points
     sys, cost0 = cost_at(R, t, X)
@@ -69,9 +78,9 @@ def ba_solve_raw(problem: BAProblem, max_iters: int = 20, pcg_iters: int = 40,
     while it < max_iters and not done:
         Hpp_inv = damped_pp_inverse(sys, lam)
         dx_c = pcg_solve(sys, obs, lam, n_points, upd_mask, keys, iters=pcg_iters,
-                         Hpp_inv=Hpp_inv)
+                         Hpp_inv=Hpp_inv, reduce=reduce)
         dx_p = back_substitute(sys, obs, lam, dx_c, n_points, keys,
-                               Hpp_inv=Hpp_inv) * pt_upd[:, None]
+                               Hpp_inv=Hpp_inv, reduce=reduce) * pt_upd[:, None]
         new_poses = SE3.exp(dx_c).compose(SE3(R, t))
         new_points = X + dx_p
         new_sys, new_cost = cost_at(new_poses.R, new_poses.t, new_points)

@@ -129,24 +129,28 @@ class BlockSystem(NamedTuple):
     w: torch.Tensor
 
 
-def _seg_sum(vals, keys, n, perm, offsets, max_len):
+def _seg_sum(vals, keys, n, perm, offsets, max_len, reduce=None):
     """Segment sum of (O, ...) rows by sorted ``keys`` into (n, ...), through
     the K4 kernel wrapper with the solve's offsets and longest segment;
-    ``perm`` puts the rows in key order first."""
+    ``perm`` puts the rows in key order first. ``reduce`` (None: none) is
+    applied to the sum: an all-reduce over the ranks that each hold a slice
+    of the observation table (``dist/dist_ba.py``), the JAX package's
+    ``_psum``."""
     shape = vals.shape
     flat = vals.reshape(shape[0], -1)
     if perm is not None:
         flat = flat[perm]
     out = sorted_segment_sum(flat.contiguous(), keys, n, offsets, max_len)
-    return out.reshape((n,) + shape[1:])
+    out = out.reshape((n,) + shape[1:])
+    return out if reduce is None else reduce(out)
 
 
-def _seg_sum_pt(vals, keys: SegmentKeys, n):
-    return _seg_sum(vals, keys.pt, n, keys.pt_perm, keys.pt_off, keys.pt_max)
+def _seg_sum_pt(vals, keys: SegmentKeys, n, reduce=None):
+    return _seg_sum(vals, keys.pt, n, keys.pt_perm, keys.pt_off, keys.pt_max, reduce)
 
 
-def _seg_sum_cam(vals, keys: SegmentKeys, n):
-    return _seg_sum(vals, keys.cam, n, keys.cam_perm, keys.cam_off, keys.cam_max)
+def _seg_sum_cam(vals, keys: SegmentKeys, n, reduce=None):
+    return _seg_sum(vals, keys.cam, n, keys.cam_perm, keys.cam_off, keys.cam_max, reduce)
 
 
 def _gather_rows(table, idx):
@@ -162,18 +166,22 @@ def _gather_pt(table, keys: SegmentKeys):
     return sorted_gather_rows(table.contiguous(), keys.pt_rows, out=keys.pt_gather)
 
 
-def assemble(poses, points, obs, n_cams, n_points, huber_delta=None, keys=None):
-    """Block normal equations and cost at (poses, points)."""
+def assemble(poses, points, obs, n_cams, n_points, huber_delta=None, keys=None, reduce=None):
+    """Block normal equations and cost at (poses, points). With ``reduce``
+    (the table is one rank's slice), every camera and point block and the
+    cost are reduced over the ranks; the coupling blocks stay the rank's."""
     if keys is None:
         keys = segment_keys(obs, n_cams, n_points)
     res, Jc, Jp, w = residuals_and_jacobians(poses, points, obs, huber_delta, keys)
     wv = w[:, None, None]
-    Hcc = _seg_sum_cam(torch.einsum("oki,okj->oij", Jc * wv, Jc), keys, n_cams)
-    Hpp = _seg_sum_pt(torch.einsum("oki,okj->oij", Jp * wv, Jp), keys, n_points)
+    Hcc = _seg_sum_cam(torch.einsum("oki,okj->oij", Jc * wv, Jc), keys, n_cams, reduce)
+    Hpp = _seg_sum_pt(torch.einsum("oki,okj->oij", Jp * wv, Jp), keys, n_points, reduce)
     Wcp = torch.einsum("oki,okj->oij", Jc * wv, Jp)
-    gc = -_seg_sum_cam(torch.einsum("oki,ok->oi", Jc * wv, res), keys, n_cams)
-    gp = -_seg_sum_pt(torch.einsum("oki,ok->oi", Jp * wv, res), keys, n_points)
+    gc = -_seg_sum_cam(torch.einsum("oki,ok->oi", Jc * wv, res), keys, n_cams, reduce)
+    gp = -_seg_sum_pt(torch.einsum("oki,ok->oi", Jp * wv, res), keys, n_points, reduce)
     cost = 0.5 * (w * (res * res).sum(-1)).sum()
+    if reduce is not None:
+        cost = reduce(cost)
     return BlockSystem(Hcc, Hpp, Wcp, gc, gp, Jc, Jp, w), cost
 
 
@@ -210,49 +218,52 @@ def damped_pp_inverse(sys: BlockSystem, lam):
 
 
 def schur_matvec(sys: BlockSystem, obs, lam, x, n_points, cam_update_mask,
-                 keys: SegmentKeys, Hpp_inv=None):
-    """S @ x for the reduced camera system; x (C, 6)."""
+                 keys: SegmentKeys, Hpp_inv=None, reduce=None):
+    """S @ x for the reduced camera system; x (C, 6). With ``reduce``, the
+    two coupling sums are reduced over the ranks (x, Hcc and Hpp are the
+    same on every rank, the coupling blocks each rank's own)."""
     x = x * cam_update_mask[:, None]
     if Hpp_inv is None:
         Hpp_inv = damped_pp_inverse(sys, lam)
     yo = torch.einsum("oij,oi->oj", sys.Wcp, _gather_rows(x, obs.cam_idx))
-    yp = _seg_sum_pt(yo, keys, n_points)
+    yp = _seg_sum_pt(yo, keys, n_points, reduce)
     zp = torch.einsum("pij,pj->pi", Hpp_inv, yp)
     wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_pt(zp, keys))
-    wc = _seg_sum_cam(wo, keys, x.shape[0])
+    wc = _seg_sum_cam(wo, keys, x.shape[0], reduce)
     Sx = torch.einsum("cij,cj->ci", _damped(sys.Hcc, lam), x) - wc
     return Sx * cam_update_mask[:, None]
 
 
 def reduced_rhs(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
-                keys: SegmentKeys, Hpp_inv=None):
+                keys: SegmentKeys, Hpp_inv=None, reduce=None):
     """rhs = gc - H_cp (H_pp+lam)^-1 gp."""
     if Hpp_inv is None:
         Hpp_inv = damped_pp_inverse(sys, lam)
     zp = torch.einsum("pij,pj->pi", Hpp_inv, sys.gp)
     wo = torch.einsum("oij,oj->oi", sys.Wcp, _gather_pt(zp, keys))
-    wc = _seg_sum_cam(wo, keys, sys.gc.shape[0])
+    wc = _seg_sum_cam(wo, keys, sys.gc.shape[0], reduce)
     return (sys.gc - wc) * cam_update_mask[:, None]
 
 
 def back_substitute(sys: BlockSystem, obs, lam, dx_c, n_points, keys: SegmentKeys,
-                    Hpp_inv=None):
+                    Hpp_inv=None, reduce=None):
     """dx_p = (H_pp+lam)^-1 (gp - H_pc dx_c)."""
     if Hpp_inv is None:
         Hpp_inv = damped_pp_inverse(sys, lam)
     yo = torch.einsum("oij,oi->oj", sys.Wcp, _gather_rows(dx_c, obs.cam_idx))
-    yp = _seg_sum_pt(yo, keys, n_points)
+    yp = _seg_sum_pt(yo, keys, n_points, reduce)
     return torch.einsum("pij,pj->pi", Hpp_inv, sys.gp - yp)
 
 
 def pcg_solve(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
-              keys: SegmentKeys, iters: int = 40, Hpp_inv=None):
+              keys: SegmentKeys, iters: int = 40, Hpp_inv=None, reduce=None):
     """Preconditioned CG on the reduced camera system (block-Jacobi
     preconditioner, fixed iteration count, stagnation guarded as in the JAX
-    package)."""
+    package). With ``reduce`` each matvec is reduced over the ranks; the CG
+    state is the same on every rank, so its dot products need no reduce."""
     if Hpp_inv is None:
         Hpp_inv = damped_pp_inverse(sys, lam)
-    rhs = reduced_rhs(sys, obs, lam, n_points, cam_update_mask, keys, Hpp_inv)
+    rhs = reduced_rhs(sys, obs, lam, n_points, cam_update_mask, keys, Hpp_inv, reduce)
     # inv_ex: no singularity check, which would read back (the blocks are damped).
     Minv = torch.linalg.inv_ex(_damped(sys.Hcc, lam))[0]
 
@@ -265,7 +276,7 @@ def pcg_solve(sys: BlockSystem, obs, lam, n_points, cam_update_mask,
     p = z
     rz = (r * z).sum()
     for _ in range(iters):
-        Sp = schur_matvec(sys, obs, lam, p, n_points, cam_update_mask, keys, Hpp_inv)
+        Sp = schur_matvec(sys, obs, lam, p, n_points, cam_update_mask, keys, Hpp_inv, reduce)
         pSp = (p * Sp).sum()
         small = pSp.abs() < 1e-20
         alpha = torch.where(small, 0.0, rz / torch.where(small, 1.0, pSp))

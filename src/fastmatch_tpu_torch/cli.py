@@ -14,8 +14,9 @@ ported, with the JAX package's argument names and JSON output:
   evaluate    match precision/recall ('synth' pairs or an Oxford-VGG
               directory; --plot-dir for match figures) or trajectory
               ATE/RPE ('traj --est --gt')
-  slam        SLAM with loop closure (--engine auto|device|host|scan|chunked);
-              --selfcal N, --plot PNG (top-down trajectory)
+  slam        SLAM with loop closure (--engine auto|device|host|scan|chunked),
+              or on a (data, bank) mesh of ranks with --mesh; --selfcal N,
+              --plot PNG (top-down trajectory)
   flow        KLT: Shi-Tomasi corners on A tracked into B
   vo          KLT visual odometry over an image directory (--engine host|scan),
               or metric stereo VO with --right
@@ -29,11 +30,12 @@ ported, with the JAX package's argument names and JSON output:
 
 Everything runs on the card unless ``--device cpu`` is given. What is not
 ported yet raises ``NotImplementedError`` naming its ROADMAP item, and
-nothing is dropped silently: ``slam --mesh`` and its options
-(``--checkpoint-interval``, ``--resume``, ``--no-overlap``) wait for
-``dist/`` (Queue 1 item 1), and ``bench`` for the port's benchmark (Queue 1
-item 2). Figures (``--plot``, ``--plot-dir``) need matplotlib, imported
-only when one is asked for. Config: a JSON or YAML
+nothing is dropped silently: ``bench`` waits for the port's benchmark
+(Queue 1 item 2). ``slam --mesh`` runs ``dist/pipeline.slam_distributed``:
+every rank runs the same command, joined by COORDINATOR_ADDRESS,
+NUM_PROCESSES and PROCESS_ID (none set: one rank), NCCL on the card and
+gloo with ``--device cpu``; rank 0 writes the files. Figures (``--plot``,
+``--plot-dir``) need matplotlib, imported only when one is asked for. Config: a JSON or YAML
 ``--config`` file and dotted ``--set`` overrides, e.g.
 ``--set ba.interval=3 --set matching.ratio=0.75``.
 """
@@ -367,13 +369,22 @@ def cmd_reconstruct(args):
                       **({"gps": gps} if gps else {})}))
 
 
+def _parse_mesh(spec: str) -> dict:
+    """'bank=4' / 'data=2,bank=4' -> {'n_data': 2, 'n_bank': 4}."""
+    out = {}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in ("data", "bank") or not v.strip().isdigit():
+            raise SystemExit(f"bad --mesh spec {spec!r}; use e.g. "
+                             "'bank=4' or 'data=2,bank=4'")
+        out["n_" + k] = int(v)
+    return out
+
+
 def cmd_slam(args):
     from fastmatch_tpu_torch.pipeline.slam import SlamConfig
 
-    if args.mesh:
-        raise not_ported("slam --mesh (dist/pipeline.py)", 1)
-    if args.checkpoint_interval or args.resume or args.no_overlap:
-        raise not_ported("--checkpoint-interval/--resume/--no-overlap (with --mesh)", 1)
     cfg = _load_config(args)
     scfg = SlamConfig(window=args.window, loop_gap=args.loop_gap,
                       loop_min_votes=args.loop_min_votes)
@@ -385,9 +396,33 @@ def cmd_slam(args):
         engine = "device" if dev.type == "cuda" else "host"
     secs = {}
     feats, cam = _load_features(args, cfg, secs)
+    if not args.mesh and (args.checkpoint_interval or args.resume or args.no_overlap):
+        raise SystemExit("--checkpoint-interval, --resume and --no-overlap need --mesh")
+    if args.mesh:
+        import torch.distributed as dist
+
+        from fastmatch_tpu_torch.dist.bootstrap import initialize_distributed
+
+        mesh_shape = _parse_mesh(args.mesh)
+        initialize_distributed(device=dev)
+        if dist.get_rank() != 0:
+            # Every rank holds the same map: rank 0 alone writes the files.
+            args = argparse.Namespace(**{**vars(args), **dict.fromkeys(
+                ("out", "trajectory", "plot", "checkpoint", "metrics", "export_ply",
+                 "export_colmap", "export_kitti"))})
     metrics = _metrics(args)
     kw = dict(metrics=metrics, device=dev)
-    if engine == "device":
+    if args.mesh:
+        # Sharded retrieval + distributed BA + overlap + periodic
+        # checkpoint on a (data, bank) mesh of ranks.
+        from fastmatch_tpu_torch.dist.pipeline import DistConfig, slam_distributed
+
+        engine = "mesh"
+        dcfg = DistConfig(**mesh_shape, checkpoint_dir=args.checkpoint,
+                          checkpoint_interval=args.checkpoint_interval,
+                          overlap=not args.no_overlap)
+        out = slam_distributed(feats, cam, cfg, scfg, dcfg, resume_from=args.resume, **kw)
+    elif engine == "device":
         from fastmatch_tpu_torch.pipeline.slam_device import slam_device
 
         out = slam_device(feats, cam, cfg, scfg, **kw)
@@ -907,15 +942,23 @@ def main(argv=None):
                     "between them")
     sp.add_argument("--chunk", type=int, default=16,
                     help="with --engine chunked: frames per slice")
-    sp.add_argument("--mesh", help="multi-card pipeline: not yet ported")
-    sp.add_argument("--no-overlap", action="store_true")
-    sp.add_argument("--checkpoint-interval", type=int, default=0)
-    sp.add_argument("--resume")
+    sp.add_argument("--mesh", help="multi-rank pipeline, e.g. 'bank=4' or 'data=1,bank=8': "
+                    "ring-sharded retrieval + distributed BA + overlap on a (data, bank) "
+                    "mesh of ranks (dist/pipeline.py)")
+    sp.add_argument("--no-overlap", action="store_true",
+                    help="with --mesh: disable retrieval/BA overlap (serial schedule, "
+                    "identical results)")
+    sp.add_argument("--checkpoint-interval", type=int, default=0,
+                    help="with --mesh: snapshot the tracker state every N accepted frames "
+                    "into --checkpoint (resumable via --resume)")
+    sp.add_argument("--resume", help="with --mesh: resume from a --checkpoint dir "
+                    "(bit-deterministic continuation)")
     sp.add_argument("--out")
     sp.add_argument("--plot", help="write a top-down trajectory PNG here (matplotlib)")
     sp.add_argument("--trajectory", help="write TUM-format trajectory here")
     sp.add_argument("--checkpoint", metavar="DIR",
-                    help="save the map here (map.pt, pipeline/checkpoint.py)")
+                    help="save the map here (map.pt, pipeline/checkpoint.py); with --mesh "
+                    "and --checkpoint-interval also the tracker snapshots (track.pt)")
     sp.add_argument("--metrics", help="write JSONL metrics here")
     sp.add_argument("--selfcal", type=int, default=0, metavar="N",
                     help="after mapping, refine the camera intrinsics against the map: N "
