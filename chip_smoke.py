@@ -73,7 +73,16 @@ Phases, in order; any failure exits nonzero before the result line:
    none in the feature-driven engines, K4 and K5 launched, K1 not;
 9. the CLI (``cli``): ``info``, ``reconstruct``, ``evaluate``, ``match`` and
    ``slam`` (``--engine auto``: the device engine on the card);
-10. the small-baseline front end and dense depth (``vo_paths``) at default
+10. image input (``image_io``): the port's own JPEG, PNG and PNM decoder
+   (``csrc/imageio/``, built with g++ and -lpthread alone) on the corpus of
+   ``tests/data/torch_images/`` against its ``references.npz`` (the JAX
+   package's libjpeg/libpng decodes), bit for bit; the 50 smoke frames
+   written as 8-bit PNGs and decoded back; ``reconstruct`` of that PNG
+   directory, ``match`` of the two committed 640x480 JPEGs and ``flow`` of
+   two PNGs through the CLI, with K1-K5's launch counts set to 0 just
+   before and read just after; host decode ms a frame and ``FrameLoader``
+   frames/s at 1 and 4 threads;
+11. the small-baseline front end and dense depth (``vo_paths``) at default
    widths on the 50 smoke frames and a rectified right stream:
    ``visual_odometry`` and ``visual_odometry_scan`` twice each,
    ``stereo_visual_odometry``, ``stereo_disparity`` and ``rectify_pair``,
@@ -84,7 +93,7 @@ Phases, in order; any failure exits nonzero before the result line:
    a tracked frame, K4 and K5 launched, K1 and K2 not, and card against CPU
    for ``track_pair``, ``stereo_disparity``, ``densify`` and ``vialign``;
    then the grouped BA and the 5-point solver on the card;
-11. the saved map's product surface (``map_services``) over the 120-frame
+12. the saved map's product surface (``map_services``) over the 120-frame
    ``slam_device`` map of phase 8: checkpoints and a bit-identical resume
    from ``track.pt``, 12 held-out rendered views through ``localize`` and
    through ``serve`` over HTTP (sequential and 4 client threads), ``locate --retrieval 4`` through the CLI, ``merge_maps`` of
@@ -94,7 +103,7 @@ Phases, in order; any failure exits nonzero before the result line:
    index, K2 at 2048 x 4,000,000 and K4 at k-means' shape against their
    plain versions, and the IVF agreement at 262,144 rows against the JAX
    package's (``tools/jax_city_reference.py``);
-12. the distributed engine (``dist_paths``) at world size 1 over NCCL, the
+13. the distributed engine (``dist_paths``) at world size 1 over NCCL, the
    one-card ceiling: the ring matcher at 2048 x 262,144 and its ring steps
    over 4 and 8 slabs (K2), sharded BA on the main path's problem (K4, K5),
    ``slam_distributed`` on the 56 config-4 frames beside ``slam_device``
@@ -2388,20 +2397,34 @@ def _cli(argv):
             time.perf_counter() - t0)
 
 
+def quantize8(img):
+    """A float frame as the image library decodes its 8-bit encoding:
+    code * (1.0f / 255.0f) in float32."""
+    import numpy as np
+
+    q = np.clip(np.round(img * 255), 0, 255).astype(np.float32)
+    return q * (np.float32(1.0) / np.float32(255.0))
+
+
+def _write_gt_tum(scene, n, path):
+    import numpy as np
+
+    with open(path, "w") as fh:
+        for f, c in enumerate(-np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])):
+            fh.write(f"{f} {c[0]:.7f} {c[1]:.7f} {c[2]:.7f} 0 0 0 1\n")
+
+
 def cli_phase(scene, views, direct):
-    """The port's CLI on the card. The card's machine has no libjpeg or
-    libpng headers, so the image library (``native/``) does not build
-    there and the CLI's image inputs are tested on the CPU only
-    (tests/test_torch_cli.py); here the CLI reads features and synthetic
-    images, as a user without the library would. ``info`` through
-    ``python -m fastmatch_tpu_torch.cli`` in a child process; then
+    """The port's CLI on the card, from features and synthetic images; the
+    image files come in the next phase (``image_io_phase``). ``info``
+    through ``python -m fastmatch_tpu_torch.cli`` in a child process; then
     in-process (``cli.main``), each call with K1-K5's launch counts set to 0
     just before and read just after: ``reconstruct`` of a .npz of the 50
     smoke frames' features (SIFT on the card from the frames quantized to
-    8 bits, what a PGM decode gives), ``evaluate traj`` of its output
-    against the scene's TUM trajectory, ``match`` of frames 0 and 1's
-    descriptor dumps, ``evaluate synth --n-synth 2`` (SIFT on numpy
-    images); and ``verify_matches(model="fundamental")``, the target of
+    8 bits as the image library decodes them, ``quantize8``), ``evaluate
+    traj`` of its output against the scene's TUM trajectory, ``match`` of
+    frames 0 and 1's descriptor dumps, ``evaluate synth --n-synth 2`` (SIFT
+    on numpy images); and ``verify_matches(model="fundamental")``, the target of
     ``match --verify fundamental``, on frames 0 and 1. Gates: 50/50
     frames, ATE < ATE_GATE, points and observations within 5% of
     ``direct`` (the main path's ``reconstruct`` on the unquantized frames
@@ -2446,8 +2469,7 @@ def cli_phase(scene, views, direct):
         t0 = time.perf_counter()
         feats = []
         for img in views:
-            q = np.clip(np.round(img * 255), 0, 255).astype(np.float32) / 255
-            kps, desc = detect_and_describe(q, cfg.sift, device=DEV)
+            kps, desc = detect_and_describe(quantize8(img), cfg.sift, device=DEV)
             feats.append((kps, desc))
         arrays = {"n_frames": len(views), "image_size": np.array(views[0].shape[::-1])}
         for i, (kps, desc) in enumerate(feats):
@@ -2458,10 +2480,7 @@ def cli_phase(scene, views, direct):
         for i in (0, 1):
             np.save(os.path.join(tmp, f"desc{i}.npy"), arrays[f"desc_{i}"][arrays[f"mask_{i}"]])
         gt_path = os.path.join(tmp, "gt_tum.txt")
-        with open(gt_path, "w") as fh:
-            n = len(views)
-            for f, c in enumerate(-np.einsum("fji,fj->fi", scene.R[:n], scene.t[:n])):
-                fh.write(f"{f} {c[0]:.7f} {c[1]:.7f} {c[2]:.7f} 0 0 0 1\n")
+        _write_gt_tum(scene, len(views), gt_path)
         out["features_seconds"] = time.perf_counter() - t0
         rec_path, metrics = os.path.join(tmp, "rec.npz"), os.path.join(tmp, "metrics.jsonl")
         rep, rec_launches = call("reconstruct", ["reconstruct", npz, "--out", rec_path,
@@ -2520,6 +2539,227 @@ def cli_phase(scene, views, direct):
                      f"{JAX_EVALUATE_SYNTH2['mean_precision']}")
     if fails:
         raise AssertionError(f"cli phase: {fails}")
+    return out
+
+
+# -- phase 10: image input ----------------------------------------------------
+
+IMAGE_DATA = os.path.join(ROOT, "tests", "data", "torch_images")
+# Adam7 PNGs: libpng, read row by row as the JAX package reads them, returns
+# the passes' rows; the port refuses them (tests/test_torch_imageio.py).
+IMAGE_ADAM7 = ("png_adam7.png", "png_adam7_gray.png")
+IMAGE_MATCH_PAIR = ("smoke_000.jpg", "smoke_001.jpg")
+DECODE_REPS = 20
+
+
+def write_png8(path, img8):
+    """An 8-bit gray PNG of `img8` (H, W) uint8 by numpy and the standard
+    library's zlib, the row filters cycling None, Sub, Up, Average, Paeth."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    x = img8.astype(np.int16)
+    rows = []
+    for y in range(x.shape[0]):
+        cur = x[y]
+        up = x[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([[0], cur[:-1]]).astype(np.int16)
+        ul = np.concatenate([[0], up[:-1]]).astype(np.int16)
+        f = y % 5
+        if f == 0:
+            pred = np.zeros_like(cur)
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = up
+        elif f == 3:
+            pred = (left + up) >> 1
+        else:
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        rows.append(bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(tag, body):
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    h, w = img8.shape
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+
+
+def _corpus_check(load_gray):
+    """Every corpus file's decode against references.npz: (n_files, fails)."""
+    import hashlib
+
+    import numpy as np
+
+    refs = np.load(os.path.join(IMAGE_DATA, "references.npz"))
+    inv = np.float32(1.0) / np.float32(255.0)
+    fails = []
+    for key in refs.files:
+        kind, _, name = key.rpartition(":")
+        try:
+            got = load_gray(os.path.join(IMAGE_DATA, name))
+        except IOError as e:
+            got = int(str(e).rsplit(" ", 1)[-1])
+        if name in IMAGE_ADAM7:
+            ok = isinstance(got, int) and got == 2
+        elif kind == "rc":
+            ok = isinstance(got, int) and got == int(refs[key])
+        elif isinstance(got, int):
+            ok = False
+        elif kind == "f32":
+            ok = np.array_equal(got, refs[key])
+        elif kind == "sha256":
+            ok = str(refs[key]) == (f"{got.shape[0]}x{got.shape[1]}:"
+                                    + hashlib.sha256(got.tobytes()).hexdigest())
+        else:
+            ok = np.array_equal(got, refs[key].astype(np.float32) * inv)
+        if not ok:
+            fails.append(name)
+    return len(refs.files), fails
+
+
+def image_io_phase(scene, views, cli_out):
+    """Image files through the port on the card's machine, which has no
+    libjpeg, libpng or zlib headers: the port's own decoder
+    (``csrc/imageio/``), built there by g++ with -lpthread alone. (a) Every
+    corpus file of tests/data/torch_images/ decodes bit for bit to its
+    ``references.npz`` entry (the JAX package's decode on a CPU), or to the
+    same return code (Adam7: 2, the chosen difference). (b) The 50 smoke
+    frames written as 8-bit PNGs (``write_png8``) decode to ``quantize8`` of
+    the frames, the SIFT inputs of ``cli_phase``'s .npz route, bit for bit.
+    Then through the CLI, each call with K1-K5's launch counts set to 0 just
+    before and read just after: (c) ``reconstruct`` of the PNG directory:
+    50/50 frames, ATE < ATE_GATE by ``evaluate traj``, points and
+    observations within 5% of the .npz route's (and whether the two reports
+    are equal), K2-K5 launched (K3 once a frame); (d) ``match`` of the two
+    committed 640x480 JPEGs: K3 twice and K2 launched, the pairs equal to
+    the same SIFT and ``match_pair`` on the decoded arrays, which (a) holds
+    equal to the references; (e) ``flow`` of two of the PNGs. Logged: the
+    host ms of one 640x480 JPEG and PNG decode (median of DECODE_REPS) and
+    ``FrameLoader``'s frames/s over the 50 PNGs at 1 and 4 threads, beside
+    ``nvidia-smi``'s name and power limit."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fastmatch_tpu_torch.features.sift import detect_and_describe
+    from fastmatch_tpu_torch.matching.matcher import match_pair
+    from fastmatch_tpu_torch.pipeline.config import PipelineConfig
+    from fastmatch_tpu_torch.utils import imageio
+
+    out, fails = {"nvidia_smi": nvidia_smi_line()}, []
+    t0 = time.perf_counter()
+    imageio.build()
+    out["build_seconds"] = time.perf_counter() - t0
+    n_files, corpus_fails = _corpus_check(imageio.load_gray)
+    out["corpus"] = dict(files=n_files, mismatches=corpus_fails)
+    fails += [f"corpus file {n} decodes unlike references.npz" for n in corpus_fails]
+    wrappers = _kernel_wrappers()
+
+    def call(name, argv):
+        for w in wrappers.values():
+            w.launches = 0
+        reports, secs = _cli(argv)
+        out[name] = dict(report=reports[-1], seconds=secs,
+                         launches={k: w.launches for k, w in wrappers.items()})
+        return reports[-1], out[name]["launches"]
+
+    def median_ms(fn):
+        times = []
+        for _ in range(DECODE_REPS):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png_dir = os.path.join(tmp, "png")
+        os.makedirs(png_dir)
+        paths, bad = [], []
+        for i, img in enumerate(views):
+            path = os.path.join(png_dir, f"{i:06d}.png")
+            write_png8(path, np.clip(np.round(img * 255), 0, 255).astype(np.uint8))
+            paths.append(path)
+            if not np.array_equal(imageio.load_gray(path), quantize8(img)):
+                bad.append(i)
+        out["png_frames"] = dict(n=len(paths), mismatches=bad)
+        fails += [f"PNG frame {i} does not decode to its 8-bit codes" for i in bad]
+
+        jpeg0 = os.path.join(IMAGE_DATA, IMAGE_MATCH_PAIR[0])
+        out["decode_ms"] = dict(jpeg_640x480=median_ms(lambda: imageio.load_gray(jpeg0)),
+                                png_640x480=median_ms(lambda: imageio.load_gray(paths[0])),
+                                reps=DECODE_REPS)
+        loader_fps = {}
+        for n_threads in (1, 4):
+            t = time.perf_counter()
+            with imageio.FrameLoader(paths, size=(640, 480), n_threads=n_threads) as frames:
+                n = sum(1 for _ in frames)
+            loader_fps[f"threads_{n_threads}"] = n / (time.perf_counter() - t)
+            if n != len(paths):
+                fails.append(f"FrameLoader({n_threads} threads) gave {n}/{len(paths)} frames")
+        out["loader_frames_per_s"] = loader_fps
+
+        rec_path, metrics = os.path.join(tmp, "rec.npz"), os.path.join(tmp, "metrics.jsonl")
+        gt_path = os.path.join(tmp, "gt_tum.txt")
+        _write_gt_tum(scene, len(views), gt_path)
+        rep, rec_launches = call("reconstruct", ["reconstruct", png_dir, "--out", rec_path,
+                                                 "--metrics", metrics])
+        with open(metrics) as fh:
+            stages = [e for e in map(json.loads, fh) if e["event"] == "stage_seconds"][0]
+        out["reconstruct"]["stage_seconds"] = {k: v for k, v in stages.items()
+                                               if k not in ("ts", "event", "step")}
+        traj, _ = call("evaluate_traj", ["evaluate", "traj", "--est", rec_path, "--gt", gt_path])
+        npz_rep = cli_out["reconstruct"]["report"]
+        out["reconstruct"]["npz_route"] = npz_rep
+        out["reconstruct"]["same_as_npz_route"] = all(
+            rep[k] == npz_rep[k] for k in ("n_frames", "n_points", "n_obs"))
+
+        pairs_path = os.path.join(tmp, "pairs.npz")
+        match, match_launches = call("match", ["match", jpeg0,
+                                               os.path.join(IMAGE_DATA, IMAGE_MATCH_PAIR[1]),
+                                               "--out", pairs_path])
+        cli_pairs = np.load(pairs_path)["pairs"]
+        cfg = PipelineConfig()
+        descs = [detect_and_describe(torch.from_numpy(imageio.load_gray(
+            os.path.join(IMAGE_DATA, n))), cfg.sift, device=DEV)[1] for n in IMAGE_MATCH_PAIR]
+        m = match_pair(descs[0], descs[1], ratio=cfg.matching.ratio,
+                       cross_check=cfg.matching.cross_check, backend=cfg.matching.backend,
+                       precision=cfg.matching.precision, device=DEV)
+        valid = m.valid.cpu().numpy() & descs[0].mask.cpu().numpy()
+        lib_pairs = np.stack([np.where(valid)[0], m.idx.cpu().numpy()[valid]], axis=1)
+        out["match"]["pairs_equal_library_call"] = bool(np.array_equal(cli_pairs, lib_pairs))
+        flow, flow_launches = call("flow", ["flow", paths[0], paths[1]])
+    log("image_io", json.dumps(out))
+
+    if rep["n_frames"] != len(views):
+        fails.append(f"reconstruct <png dir>: {rep['n_frames']}/{len(views)} frames")
+    if not traj["ate_rmse"] < ATE_GATE:
+        fails.append(f"reconstruct <png dir> ATE {traj['ate_rmse']} >= {ATE_GATE}")
+    for k in ("n_points", "n_obs"):
+        if abs(rep[k] - npz_rep[k]) > CLI_COUNT_TOL * npz_rep[k]:
+            fails.append(f"reconstruct <png dir> {k} {rep[k]} not within 5% of the .npz "
+                         f"route's {npz_rep[k]}")
+    fails += [f"reconstruct <png dir>: kernel {k} not launched" for k in (
+        "distance_topk", "sorted_segment_sum", "sorted_gather_rows") if rec_launches[k] <= 0]
+    if rec_launches["gather_patch_sets"] != len(views):
+        fails.append(f"reconstruct <png dir> K3 launches {rec_launches}, want one a frame")
+    if match_launches["gather_patch_sets"] != 2 or match_launches["distance_topk"] <= 0:
+        fails.append(f"match of two JPEGs: launches {match_launches}, want K3 twice and K2")
+    if not (match["n_matches"] > 0 and out["match"]["pairs_equal_library_call"]):
+        fails.append(f"match of two JPEGs: {match}, pairs equal to the library call: "
+                     f"{out['match']['pairs_equal_library_call']}")
+    if not flow["n_tracked"] > 0:
+        fails.append(f"flow of two PNGs: {flow}")
+    if fails:
+        raise AssertionError(f"image_io phase: {fails}")
     return out
 
 
@@ -4624,6 +4864,7 @@ def main() -> int:
     device_slam_launches, details["config4_device_slam"], map120 = phase(
         "config4_device_slam", config4_device_slam, *config4_inputs)
     details["cli"] = phase("cli", cli_phase, scene, views, details["main_path"])
+    details["image_io"] = phase("image_io", image_io_phase, scene, views, details["cli"])
     vo_launches, details["vo_paths"] = phase("vo_paths", vo_paths)
     details["grouped_ba"] = phase("grouped_ba", grouped_ba, rec)
     details["five_point"] = phase("five_point", five_point, scene, views)
@@ -4638,6 +4879,8 @@ def main() -> int:
                                            "k4_launches_on_the_path"],
                                        **{f"cli_{k}": details["cli"][k]["launches"] for k in (
                                            "reconstruct", "match", "evaluate_synth")},
+                                       **{f"image_io_{k}": details["image_io"][k]["launches"]
+                                          for k in ("reconstruct", "match", "flow")},
                                        **{f"vo_{k}": v for k, v in vo_launches.items()},
                                        map_services=map_launches,
                                        global_sfm_selfcal=global_launches,

@@ -1,12 +1,14 @@
-"""Host-side image loading through the repository's native library.
+"""Host-side image loading through the port's own native library.
 
-Port of ``fastmatch_tpu/utils/imageio.py``: a ctypes binding of
-``native/imageio.cpp`` (JPEG, PNG, PGM and PPM to grayscale float32 in
-[0, 1], bilinear resize) and ``native/loader.cpp`` (a threaded prefetching
-frame loader). The port builds the library itself at first use, with
-``g++`` and ``native/Makefile``'s flags, into the package's git-ignored
-``_build/`` directory (``fmimageio-<hash>.so``; the hash covers both
-sources and the command), never into ``native/``. A failed build raises.
+Port of ``fastmatch_tpu/utils/imageio.py``: a ctypes binding of the
+library in ``csrc/imageio/`` (JPEG, PNG, PGM and PPM to grayscale float32
+in [0, 1], bilinear resize, and a threaded prefetching frame loader). Its
+JPEG and PNG decoders (with their inflate) are the port's own C++, which
+give libjpeg's and libpng's arrays bit for bit, so the library needs no
+image or compression headers: it builds from ``csrc/imageio/`` alone with
+``g++`` and ``-lpthread``, at first use, into the package's git-ignored
+``_build/`` directory (``fmimageio-<hash>.so``; the hash covers every
+source and header and the command). A failed build raises.
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-NATIVE = os.path.normpath(os.path.join(_HERE, "..", "..", "..", "native"))
+NATIVE = os.path.normpath(os.path.join(_HERE, "..", "csrc", "imageio"))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("imageio.cpp", "loader.cpp")
-# native/Makefile: CXXFLAGS and LDLIBS.
+SOURCES = ("imageio.cpp", "jpeg.cpp", "png.cpp", "loader.cpp")
+HEADERS = ("decode.h",)
 CXX_FLAGS = ["-O2", "-fPIC", "-Wall", "-std=c++17", "-shared"]
-LD_LIBS = ["-ljpeg", "-lpng", "-lpthread"]
+LD_LIBS = ["-lpthread"]
 
 _lib = None
 _lock = threading.Lock()
@@ -34,7 +36,7 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 
 def _target() -> str:
     digest = hashlib.sha256(" ".join(CXX_FLAGS + LD_LIBS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(NATIVE, name), "rb") as fh:
             digest.update(name.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"fmimageio-{digest.hexdigest()[:12]}.so")
@@ -106,7 +108,7 @@ def load_gray(path: str, size: tuple[int, int] | None = None) -> np.ndarray:
 
 
 class FrameLoader:
-    """Threaded prefetching frame loader (``native/loader.cpp``): worker
+    """Threaded prefetching frame loader (``csrc/imageio/loader.cpp``): worker
     threads decode and resize ahead of the consumer into a bounded reorder
     buffer; iteration yields (index, (H, W) float32 in [0, 1]) in order,
     skipping frames that fail to decode (their index is missing).
