@@ -78,10 +78,11 @@ Phases, in order; any failure exits nonzero before the result line:
    ``tests/data/torch_images/`` against its ``references.npz`` (the JAX
    package's libjpeg/libpng decodes), bit for bit; the 50 smoke frames
    written as 8-bit PNGs and decoded back; ``reconstruct`` of that PNG
-   directory, ``match`` of the two committed 640x480 JPEGs and ``flow`` of
-   two PNGs through the CLI, with K1-K5's launch counts set to 0 just
-   before and read just after; host decode ms a frame and ``FrameLoader``
-   frames/s at 1 and 4 threads;
+   directory, ``match`` of the two committed 640x480 JPEGs and of the same
+   frames arithmetic-coded (SOF10 and SOF9, equal arrays and pairs) and
+   ``flow`` of two PNGs through the CLI, with K1-K5's launch counts set to
+   0 just before and read just after; host decode ms a frame and
+   ``FrameLoader`` frames/s at 1 and 4 threads;
 11. the small-baseline front end and dense depth (``vo_paths``) at default
    widths on the 50 smoke frames and a rectified right stream:
    ``visual_odometry`` and ``visual_odometry_scan`` twice each,
@@ -2549,6 +2550,12 @@ IMAGE_DATA = os.path.join(ROOT, "tests", "data", "torch_images")
 # the passes' rows; the port refuses them (tests/test_torch_imageio.py).
 IMAGE_ADAM7 = ("png_adam7.png", "png_adam7_gray.png")
 IMAGE_MATCH_PAIR = ("smoke_000.jpg", "smoke_001.jpg")
+# The same frames transcoded losslessly to arithmetic coding (SOF10, SOF9):
+# the same DCT coefficients, so the same arrays and the same pairs.
+IMAGE_ARITH_PAIR = ("smoke_000_arith_prog.jpg", "smoke_001_arith.jpg")
+IMAGE_ARITH_SOURCES = {"smoke_000_arith.jpg": "smoke_000.jpg",
+                       "smoke_001_arith.jpg": "smoke_001.jpg",
+                       "smoke_000_arith_prog.jpg": "smoke_000.jpg"}
 DECODE_REPS = 20
 
 
@@ -2640,8 +2647,12 @@ def image_io_phase(scene, views, cli_out):
     are equal), K2-K5 launched (K3 once a frame); (d) ``match`` of the two
     committed 640x480 JPEGs: K3 twice and K2 launched, the pairs equal to
     the same SIFT and ``match_pair`` on the decoded arrays, which (a) holds
-    equal to the references; (e) ``flow`` of two of the PNGs. Logged: the
-    host ms of one 640x480 JPEG and PNG decode (median of DECODE_REPS) and
+    equal to the references; (e) ``match`` of the same frames
+    arithmetic-coded (SOF10 and SOF9, ``IMAGE_ARITH_PAIR``), whose arrays
+    equal the Huffman files' bit for bit: K3 twice and K2 as often as in
+    (d), the same pairs; (f) ``flow`` of two of the PNGs. Logged: the host
+    ms of one 640x480 JPEG (Huffman, arithmetic sequential and arithmetic
+    progressive) and PNG decode (median of DECODE_REPS) and
     ``FrameLoader``'s frames/s over the 50 PNGs at 1 and 4 threads, beside
     ``nvidia-smi``'s name and power limit."""
     import statistics
@@ -2694,9 +2705,17 @@ def image_io_phase(scene, views, cli_out):
         fails += [f"PNG frame {i} does not decode to its 8-bit codes" for i in bad]
 
         jpeg0 = os.path.join(IMAGE_DATA, IMAGE_MATCH_PAIR[0])
-        out["decode_ms"] = dict(jpeg_640x480=median_ms(lambda: imageio.load_gray(jpeg0)),
-                                png_640x480=median_ms(lambda: imageio.load_gray(paths[0])),
-                                reps=DECODE_REPS)
+        arith = {n: os.path.join(IMAGE_DATA, n) for n in IMAGE_ARITH_SOURCES}
+        out["decode_ms"] = dict(
+            jpeg_640x480=median_ms(lambda: imageio.load_gray(jpeg0)),
+            jpeg_arith_640x480=median_ms(lambda: imageio.load_gray(arith["smoke_000_arith.jpg"])),
+            jpeg_arith_prog_640x480=median_ms(
+                lambda: imageio.load_gray(arith["smoke_000_arith_prog.jpg"])),
+            png_640x480=median_ms(lambda: imageio.load_gray(paths[0])), reps=DECODE_REPS)
+        arith_unlike = [n for n, src in IMAGE_ARITH_SOURCES.items() if not np.array_equal(
+            imageio.load_gray(arith[n]), imageio.load_gray(os.path.join(IMAGE_DATA, src)))]
+        out["arith_equals_huffman"] = dict(files=len(arith), mismatches=arith_unlike)
+        fails += [f"{n} decodes unlike {IMAGE_ARITH_SOURCES[n]}" for n in arith_unlike]
         loader_fps = {}
         for n_threads in (1, 4):
             t = time.perf_counter()
@@ -2736,6 +2755,11 @@ def image_io_phase(scene, views, cli_out):
         valid = m.valid.cpu().numpy() & descs[0].mask.cpu().numpy()
         lib_pairs = np.stack([np.where(valid)[0], m.idx.cpu().numpy()[valid]], axis=1)
         out["match"]["pairs_equal_library_call"] = bool(np.array_equal(cli_pairs, lib_pairs))
+        arith_pairs_path = os.path.join(tmp, "pairs_arith.npz")
+        _, arith_launches = call("match_arith", ["match", *(arith[n] for n in IMAGE_ARITH_PAIR),
+                                                 "--out", arith_pairs_path])
+        out["match_arith"]["pairs_equal_huffman"] = bool(np.array_equal(
+            np.load(arith_pairs_path)["pairs"], cli_pairs))
         flow, flow_launches = call("flow", ["flow", paths[0], paths[1]])
     log("image_io", json.dumps(out))
 
@@ -2756,6 +2780,13 @@ def image_io_phase(scene, views, cli_out):
     if not (match["n_matches"] > 0 and out["match"]["pairs_equal_library_call"]):
         fails.append(f"match of two JPEGs: {match}, pairs equal to the library call: "
                      f"{out['match']['pairs_equal_library_call']}")
+    if (arith_launches["gather_patch_sets"] != 2
+            or arith_launches["distance_topk"] != match_launches["distance_topk"]):
+        fails.append(f"match of two arithmetic JPEGs: launches {arith_launches}, want K3 "
+                     f"twice and K2 as in the Huffman pair's {match_launches}")
+    if not out["match_arith"]["pairs_equal_huffman"]:
+        fails.append(f"match of two arithmetic JPEGs: {out['match_arith']['report']}, pairs "
+                     f"unlike the Huffman pair's")
     if not flow["n_tracked"] > 0:
         fails.append(f"flow of two PNGs: {flow}")
     if fails:
@@ -3534,7 +3565,8 @@ def _k2_at(name, a, b, mask_a, mask_b, check=True, product_slab=None, time_plain
     alone (``product_only_ms``; over bank slabs of ``product_slab`` rows
     into one buffer where the whole (N, M) product would not fit), the
     bound by fp32 operations, and with ``time_plain`` the plain version's
-    ms (``distance_topk_plain`` in one piece)."""
+    ms (``distance_topk_plain`` in one piece, or above 1e9 distances in the
+    query slabs of ``_slabbed_k2_plain``, where one piece would not fit)."""
     import torch
 
     from fastmatch_tpu_torch.kernels import distance_topk as k2
@@ -3567,8 +3599,8 @@ def _k2_at(name, a, b, mask_a, mask_b, check=True, product_slab=None, time_plain
 
         d["product_only_ms"] = cuda_ms(product, batches=3, reps=1)
     if time_plain:
-        d["plain_ms"] = cuda_ms(lambda: k2.distance_topk_plain(a, b, b2m, a2m), batches=2,
-                                reps=1)
+        plain = _slabbed_k2_plain if n * m > 1e9 else k2.distance_topk_plain
+        d["plain_ms"] = cuda_ms(lambda: plain(a, b, b2m, a2m), batches=2, reps=1)
     d["bound_ms"], d["bound_by"] = bound(4 * (n * 128 + m * 128 + n + m) + 4 * (3 * n + m),
                                          2.0 * n * m * a.shape[1])
     log("K2 at", json.dumps(d))
@@ -3867,7 +3899,7 @@ def _city(rec, views_feats, scene_h, align, cam, wrappers):
     xy, d, m = views_feats[0]
     st["k2_city_exact"] = _k2_at("city_exact", torch.from_numpy(d).to(dev),
                                  bank_t, torch.from_numpy(m).to(dev), mask_t,
-                                 product_slab=250_000)
+                                 product_slab=250_000, time_plain=True)
     # K4 at k-means' cluster-sum shape, with the index's final assignment.
     st["k4_kmeans"] = _k4_kmeans_shape(ia.ivf.desc.data, ia.ivf.assign.long().clamp(
         max=st["n_clusters"] - 1), st["n_clusters"])
@@ -3897,7 +3929,7 @@ def _city(rec, views_feats, scene_h, align, cam, wrappers):
     # K2 at the IVF compact bank's shape (2048 x budget) on its real rows.
     sizes = (idx.starts[1:] - idx.starts[:-1])
     st["k2_ivf_compact"] = _k2_at("ivf_compact", qd.data, pb.data[:p["budget"]], qd.mask,
-                                  pb.mask[:p["budget"]])
+                                  pb.mask[:p["budget"]], time_plain=True)
     st["k2_ivf_compact"]["largest_cluster"] = int(sizes.max())
     return st
 
@@ -4096,7 +4128,7 @@ def map_services(map120, feats56):
         stats["k2_merge"] = _k2_at("merge_bank_by_bank", torch.from_numpy(pad[0][0]).to(dv),
                                    torch.from_numpy(pad[1][0]).to(dv),
                                    torch.from_numpy(pad[0][1]).to(dv),
-                                   torch.from_numpy(pad[1][1]).to(dv))
+                                   torch.from_numpy(pad[1][1]).to(dv), time_plain=True)
         del sessions, merged
 
         # The city.
@@ -4880,7 +4912,8 @@ def main() -> int:
                                        **{f"cli_{k}": details["cli"][k]["launches"] for k in (
                                            "reconstruct", "match", "evaluate_synth")},
                                        **{f"image_io_{k}": details["image_io"][k]["launches"]
-                                          for k in ("reconstruct", "match", "flow")},
+                                          for k in ("reconstruct", "match", "match_arith",
+                                                    "flow")},
                                        **{f"vo_{k}": v for k, v in vo_launches.items()},
                                        map_services=map_launches,
                                        global_sfm_selfcal=global_launches,

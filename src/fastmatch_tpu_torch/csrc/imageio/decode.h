@@ -12,8 +12,8 @@
 
 namespace fmimg {
 
-// JPEG (ITU-T T.81 Huffman: baseline, extended and progressive) with
-// libjpeg's JCS_GRAYSCALE output: the Y component of YCbCr and gray files,
+// JPEG (ITU-T T.81, Huffman or arithmetic coding: baseline, extended and
+// progressive) with libjpeg's JCS_GRAYSCALE output: the Y component of YCbCr and gray files,
 // libjpeg's fixed-point mix of Adobe RGB files.
 int decode_jpeg(const uint8_t* data, size_t size, std::vector<uint8_t>* gray, int* w, int* h);
 

@@ -1,5 +1,6 @@
 // JPEG decoder: ITU-T T.81 Huffman coding (SOF0 baseline, SOF1 extended,
-// SOF2 progressive), 8-bit samples, to the grayscale plane that libjpeg
+// SOF2 progressive) and arithmetic coding (SOF9 sequential, SOF10
+// progressive), 8-bit samples, to the grayscale plane that libjpeg
 // (libjpeg-turbo) gives with out_color_space = JCS_GRAYSCALE.
 //
 // What that output is, and what this file does to reproduce it:
@@ -27,9 +28,15 @@
 //   in a sequential file, tables missing in slots 0 and 1 are the standard
 //   ones of T.81 Annex K.
 //
-// Arithmetic coding (SOF9-SOF11), lossless, hierarchical and 12-bit files
-// are refused (return 2). libjpeg-turbo decodes arithmetic-coded files; the
-// port does not.
+// - Arithmetic-coded data is decoded as libjpeg's jdarith.c decodes it
+//   (T.81 Annex D, F.1.4.4, F.2.4 and G.1.3/G.2): a marker inside the data
+//   feeds zero bytes to the end of the scan, and a magnitude that overflows
+//   or a coefficient index past the band's end leaves the rest of the
+//   restart interval as it stands. DAC conditioning values default to
+//   L = 0, U = 1 and K = 5, and table slots run 0-15.
+//
+// Lossless (SOF3, SOF11), hierarchical (SOF5-SOF7, SOF13-SOF15) and 12-bit
+// files are refused (return 2), as libjpeg-turbo refuses them.
 
 #include <cstdint>
 #include <cstring>
@@ -52,6 +59,45 @@ const int kNatural[64 + 16] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// T.81 Table D.2: the probability estimation state machine, {Qe, NMPS,
+// NLPS, SWITCH} for states 0-112, and libjpeg's state 113: a fixed
+// estimate of 1/2 (T.851 Table 5), for sign and refinement bits.
+struct ArithState {
+  uint16_t qe;
+  uint8_t nmps, nlps, sw;
+};
+const ArithState kArithStates[114] = {
+    {0x5a1d, 1, 1, 1},     {0x2586, 2, 14, 0},    {0x1114, 3, 16, 0},    {0x080b, 4, 18, 0},
+    {0x03d8, 5, 20, 0},    {0x01da, 6, 23, 0},    {0x00e5, 7, 25, 0},    {0x006f, 8, 28, 0},
+    {0x0036, 9, 30, 0},    {0x001a, 10, 33, 0},   {0x000d, 11, 35, 0},   {0x0006, 12, 9, 0},
+    {0x0003, 13, 10, 0},   {0x0001, 13, 12, 0},   {0x5a7f, 15, 15, 1},   {0x3f25, 16, 36, 0},
+    {0x2cf2, 17, 38, 0},   {0x207c, 18, 39, 0},   {0x17b9, 19, 40, 0},   {0x1182, 20, 42, 0},
+    {0x0cef, 21, 43, 0},   {0x09a1, 22, 45, 0},   {0x072f, 23, 46, 0},   {0x055c, 24, 48, 0},
+    {0x0406, 25, 49, 0},   {0x0303, 26, 51, 0},   {0x0240, 27, 52, 0},   {0x01b1, 28, 54, 0},
+    {0x0144, 29, 56, 0},   {0x00f5, 30, 57, 0},   {0x00b7, 31, 59, 0},   {0x008a, 32, 60, 0},
+    {0x0068, 33, 62, 0},   {0x004e, 34, 63, 0},   {0x003b, 35, 32, 0},   {0x002c, 9, 33, 0},
+    {0x5ae1, 37, 37, 1},   {0x484c, 38, 64, 0},   {0x3a0d, 39, 65, 0},   {0x2ef1, 40, 67, 0},
+    {0x261f, 41, 68, 0},   {0x1f33, 42, 69, 0},   {0x19a8, 43, 70, 0},   {0x1518, 44, 72, 0},
+    {0x1177, 45, 73, 0},   {0x0e74, 46, 74, 0},   {0x0bfb, 47, 75, 0},   {0x09f8, 48, 77, 0},
+    {0x0861, 49, 78, 0},   {0x0706, 50, 79, 0},   {0x05cd, 51, 48, 0},   {0x04de, 52, 50, 0},
+    {0x040f, 53, 50, 0},   {0x0363, 54, 51, 0},   {0x02d4, 55, 52, 0},   {0x025c, 56, 53, 0},
+    {0x01f8, 57, 54, 0},   {0x01a4, 58, 55, 0},   {0x0160, 59, 56, 0},   {0x0125, 60, 57, 0},
+    {0x00f6, 61, 58, 0},   {0x00cb, 62, 59, 0},   {0x00ab, 63, 61, 0},   {0x008f, 32, 61, 0},
+    {0x5b12, 65, 65, 1},   {0x4d04, 66, 80, 0},   {0x412c, 67, 81, 0},   {0x37d8, 68, 82, 0},
+    {0x2fe8, 69, 83, 0},   {0x293c, 70, 84, 0},   {0x2379, 71, 86, 0},   {0x1edf, 72, 87, 0},
+    {0x1aa9, 73, 87, 0},   {0x174e, 74, 72, 0},   {0x1424, 75, 72, 0},   {0x119c, 76, 74, 0},
+    {0x0f6b, 77, 74, 0},   {0x0d51, 78, 75, 0},   {0x0bb6, 79, 77, 0},   {0x0a40, 48, 77, 0},
+    {0x5832, 81, 80, 1},   {0x4d1c, 82, 88, 0},   {0x438e, 83, 89, 0},   {0x3bdd, 84, 90, 0},
+    {0x34ee, 85, 91, 0},   {0x2eae, 86, 92, 0},   {0x299a, 87, 93, 0},   {0x2516, 71, 86, 0},
+    {0x5570, 89, 88, 1},   {0x4ca9, 90, 95, 0},   {0x44d9, 91, 96, 0},   {0x3e22, 92, 97, 0},
+    {0x3824, 93, 99, 0},   {0x32b4, 94, 99, 0},   {0x2e17, 86, 93, 0},   {0x56a8, 96, 95, 1},
+    {0x4f46, 97, 101, 0},  {0x47e5, 98, 102, 0},  {0x41cf, 99, 103, 0},  {0x3c3d, 100, 104, 0},
+    {0x375e, 93, 99, 0},   {0x5231, 102, 105, 0}, {0x4c0f, 103, 106, 0}, {0x4639, 104, 107, 0},
+    {0x415e, 99, 103, 0},  {0x5627, 106, 105, 1}, {0x50e7, 107, 108, 0}, {0x4b85, 103, 109, 0},
+    {0x5597, 109, 110, 0}, {0x504f, 107, 111, 0}, {0x5a10, 111, 110, 1}, {0x5522, 109, 112, 0},
+    {0x59eb, 111, 112, 1}, {0x5a1d, 113, 113, 0}};
+constexpr uint8_t kFixedState = 113;
 
 struct HuffSpec {
   bool defined = false;
@@ -325,7 +371,11 @@ std::vector<uint8_t> upsample(const uint8_t* in, int stride, int dw, int dh, int
 
 class Decoder {
  public:
-  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {}
+  Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {
+    memset(dc_L_, 0, sizeof dc_L_);
+    memset(dc_U_, 1, sizeof dc_U_);
+    memset(ac_K_, 5, sizeof ac_K_);
+  }
 
   void run(std::vector<uint8_t>* gray, int* w, int* h);
 
@@ -348,6 +398,8 @@ class Decoder {
   void sos();
   void setup_color();
   void derive_table(bool dc, int slot, HuffTable* t);
+  void mcu_grid(Component** sc, int n, int* mcus_x, int* mcus_y) const;
+  int16_t* mcu_block(Component* c, int n, int my, int mx, int yy, int xx, int16_t* scratch);
   void decode_scan(Component** comps, int ncomp, int ss, int se, int ah, int al,
                    const HuffTable* dct, const HuffTable* act);
   void skip_scan();
@@ -367,15 +419,25 @@ class Decoder {
     return (int)((buf_ >> nbits_) & ((1u << n) - 1));
   }
   int huff(const HuffTable& t);
+  void read_restart();
   void process_restart(Component** comps, int ncomp);
   void resync(int desired);
+
+  // arithmetic-coded data (libjpeg's jdarith.c)
+  int arith_bit(uint8_t* st);
+  void arith_reset(Component** sc, int n, bool dc, bool ac);
+  bool arith_dc(int i, int tbl, int* diff);
+  bool arith_ac(int tbl, int16_t* blk, int ss, int se, int al);
+  bool arith_ac_refine(int tbl, int16_t* blk, int ss, int se, int al);
+  void decode_scan_arith(Component** sc, int n, int ss, int se, int ah, int al);
 
   const uint8_t* d_;
   size_t n_;
   size_t pos_ = 2;  // past SOI
   int marker_ = 0;  // a marker read but not yet handled (libjpeg's unread_marker)
 
-  bool seen_sof_ = false, progressive_ = false, seen_sos_ = false, multi_scan_ = true;
+  bool seen_sof_ = false, progressive_ = false, arith_ = false, seen_sos_ = false,
+       multi_scan_ = true;
   bool saw_jfif_ = false, saw_adobe_ = false, rgb_ = false;
   int adobe_transform_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0, maxh_ = 1, maxv_ = 1;
@@ -392,6 +454,17 @@ class Decoder {
   int scans_ = 0;           // SOS markers read (libjpeg's input_scan_number)
   int last_good_row_ = 0;   // last iMCU row entered with data left (libjpeg's last_good_iMCU_row)
   int latch_[4][10], prev_latch_[4][10];
+
+  // DAC conditioning (libjpeg's arith_dc_L, arith_dc_U, arith_ac_K, reset at SOI)
+  uint8_t dc_L_[16], dc_U_[16], ac_K_[16];
+  // The arithmetic decoder: registers C, A and CT (-16 before the first two
+  // bytes, -1 after a bad code), the statistics bins of each table slot and
+  // each scan component's DC context.
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = 0;
+  uint8_t dc_stats_[16][64], ac_stats_[16][256];
+  uint8_t fixed_bin_ = kFixedState;
+  int dc_context_[4] = {};
 };
 
 int Decoder::next_marker() {
@@ -411,7 +484,8 @@ void Decoder::skip_segment() {
 void Decoder::sof(int marker) {
   if (seen_sof_) fail();
   seen_sof_ = true;
-  progressive_ = marker == 0xC2;
+  progressive_ = marker == 0xC2 || marker == 0xCA;
+  arith_ = marker == 0xC9 || marker == 0xCA;
   int len = get16() - 2;
   int prec = get();
   height_ = get16();
@@ -480,14 +554,21 @@ void Decoder::dqt() {
   if (len != 0) fail();
 }
 
-// DAC (arithmetic conditioning): checked as libjpeg checks it, then unused.
+// DAC (arithmetic conditioning): indices 0-15 set a DC table's L (low
+// nibble) and U, 16-31 an AC table's K.
 void Decoder::dac() {
   int len = get16() - 2;
   while (len > 0) {
     int index = get(), val = get();
     len -= 2;
     if (index >= 32) fail();
-    if (index < 16 && (val & 15) > (val >> 4)) fail();
+    if (index >= 16) {
+      ac_K_[index - 16] = (uint8_t)val;
+    } else {
+      dc_L_[index] = (uint8_t)(val & 15);
+      dc_U_[index] = (uint8_t)(val >> 4);
+      if (dc_L_[index] > dc_U_[index]) fail();
+    }
   }
   if (len != 0) fail();
 }
@@ -584,10 +665,14 @@ void Decoder::sos() {
     if (ah != 0 && al != ah - 1) bad = true;
     if (al > 13) bad = true;
     if (bad) fail();
-    for (int i = 0; i < n; i++) {  // jdphuff.c's progression status
+    // The progression status. jdphuff.c also keeps the previous scan's
+    // for smoothing; jdarith.c does not, and needs none: its scans read to
+    // their end, so smoothing reads every row with the current status.
+    for (int i = 0; i < n; i++) {
       Component* c = sc[i];
-      for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); k++)
-        c->prev_coef_bits[k] = scans_ > 1 ? c->coef_bits[k] : 0;
+      if (!arith_)
+        for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); k++)
+          c->prev_coef_bits[k] = scans_ > 1 ? c->coef_bits[k] : 0;
       for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
     }
   } else {
@@ -598,6 +683,10 @@ void Decoder::sos() {
   int blocks = 0;
   for (int i = 0; i < n; i++) blocks += n == 1 ? 1 : sc[i]->h * sc[i]->v;
   if (blocks > 10) fail();
+  if (arith_) {  // table slots 0-15 (4-bit fields), no tables to derive
+    decode_scan_arith(sc, n, ss, se, ah, al);
+    return;
+  }
   HuffTable dct[4], act[4];
   for (int i = 0; i < n; i++) {
     Component* c = sc[i];
@@ -698,9 +787,8 @@ void Decoder::resync(int desired) {
   }
 }
 
-void Decoder::process_restart(Component** comps, int ncomp) {
-  nbits_ = 0;
-  buf_ = 0;
+// libjpeg's read_restart_marker.
+void Decoder::read_restart() {
   if (!marker_) marker_ = next_marker();
   if (marker_ == 0xD0 + next_restart_) {
     marker_ = 0;
@@ -708,10 +796,39 @@ void Decoder::process_restart(Component** comps, int ncomp) {
     resync(next_restart_);
   }
   next_restart_ = (next_restart_ + 1) & 7;
+}
+
+void Decoder::process_restart(Component** comps, int ncomp) {
+  nbits_ = 0;
+  buf_ = 0;
+  read_restart();
   for (int i = 0; i < ncomp; i++) comps[i]->last_dc = 0;
   eobrun_ = 0;
   restarts_to_go_ = restart_interval_;
   if (!marker_) insufficient_ = false;
+}
+
+// A scan of one component has one block an MCU; an interleaved scan the
+// components' h x v blocks.
+void Decoder::mcu_grid(Component** sc, int n, int* mcus_x, int* mcus_y) const {
+  if (n == 1) {
+    *mcus_x = sc[0]->bw;
+    *mcus_y = sc[0]->bh;
+  } else {
+    *mcus_x = (width_ + 8 * maxh_ - 1) / (8 * maxh_);
+    *mcus_y = (height_ + 8 * maxv_ - 1) / (8 * maxv_);
+  }
+}
+
+// Block (yy, xx) of component c in MCU (my, mx): its stored block, or the
+// zeroed scratch block when the component's coefficients are not kept.
+int16_t* Decoder::mcu_block(Component* c, int n, int my, int mx, int yy, int xx,
+                            int16_t* scratch) {
+  if (c->coef.empty()) {
+    memset(scratch, 0, 64 * sizeof(int16_t));
+    return scratch;
+  }
+  return c->block(n == 1 ? my : my * c->v + yy, n == 1 ? mx : mx * c->h + xx);
 }
 
 void Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al,
@@ -724,13 +841,7 @@ void Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al,
   restarts_to_go_ = restart_interval_;
 
   int mcus_x, mcus_y;
-  if (n == 1) {
-    mcus_x = sc[0]->bw;
-    mcus_y = sc[0]->bh;
-  } else {
-    mcus_x = (width_ + 8 * maxh_ - 1) / (8 * maxh_);
-    mcus_y = (height_ + 8 * maxv_ - 1) / (8 * maxv_);
-  }
+  mcu_grid(sc, n, &mcus_x, &mcus_y);
   int16_t scratch[64];
   const int p1 = 1 << al, m1 = -1 * (1 << al);
 
@@ -745,15 +856,7 @@ void Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al,
           const int bh = n == 1 ? 1 : c->v, bwid = n == 1 ? 1 : c->h;
           for (int yy = 0; yy < bh; yy++) {
             for (int xx = 0; xx < bwid; xx++) {
-              const int by = n == 1 ? my : my * c->v + yy;
-              const int bx = n == 1 ? mx : mx * c->h + xx;
-              int16_t* blk;
-              if (!c->coef.empty()) {
-                blk = c->block(by, bx);
-              } else {
-                memset(scratch, 0, sizeof scratch);
-                blk = scratch;
-              }
+              int16_t* blk = mcu_block(c, n, my, mx, yy, xx, scratch);
               if (!progressive_) {
                 int s = huff(dct[i]);
                 if (s) s = extend(bits(s), s);
@@ -845,6 +948,235 @@ void Decoder::decode_scan(Component** sc, int n, int ss, int se, int ah, int al,
   }
   nbits_ = 0;
   buf_ = 0;
+}
+
+// ---------- arithmetic decoding (T.81 Annex D, F.1.4.4, F.2.4, G.1.3, G.2) ----------
+
+// One binary decision with statistics bin *st: libjpeg's arith_decode. The
+// bin holds the state index (low 7 bits) and the MPS (bit 7). Bytes come in
+// as libjpeg reads them: FF 00 is data FF, any other marker is latched and
+// zero bytes follow it.
+int Decoder::arith_bit(uint8_t* st) {
+  while (a_ < 0x8000) {  // D.2.6: renormalisation and data input
+    if (--ct_ < 0) {
+      int data = 0;
+      if (!marker_) {
+        data = get();
+        if (data == 0xFF) {
+          do data = get(); while (data == 0xFF);
+          if (data == 0) {
+            data = 0xFF;
+          } else {
+            marker_ = data;
+            data = 0;
+          }
+        }
+      }
+      c_ = (c_ << 8) | data;
+      if ((ct_ += 8) < 0 && ++ct_ == 0) a_ = 0x8000;  // two initial bytes read
+    }
+    a_ <<= 1;
+  }
+  int sv = *st;
+  const ArithState& e = kArithStates[sv & 0x7F];
+  const int64_t qe = e.qe;
+  const int nm = e.nmps, nl = (e.sw << 7) | e.nlps;
+  int64_t temp = a_ - qe;  // D.2.4 and D.2.5: decode, then estimate
+  a_ = temp;
+  temp <<= ct_;
+  if (c_ >= temp) {
+    c_ -= temp;
+    if (a_ < qe) {  // conditional exchange: the MPS
+      a_ = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    } else {
+      a_ = qe;
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (a_ < 0x8000) {
+    if (a_ < qe) {  // conditional exchange: the LPS
+      *st = (uint8_t)((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = (uint8_t)((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+// The start of a scan or of a restart interval: the bins of the tables the
+// scan codes, the DC predictions and contexts, and C, A and CT.
+void Decoder::arith_reset(Component** sc, int n, bool dc, bool ac) {
+  for (int i = 0; i < n; i++) {
+    if (dc) {
+      memset(dc_stats_[sc[i]->dc_tbl], 0, sizeof dc_stats_[0]);
+      sc[i]->last_dc = 0;
+      dc_context_[i] = 0;
+    }
+    if (ac) memset(ac_stats_[sc[i]->ac_tbl], 0, sizeof ac_stats_[0]);
+  }
+  c_ = 0;
+  a_ = 0;
+  ct_ = -16;
+}
+
+// Figures F.19 and F.21-F.24: the DC difference of scan component i with
+// table tbl, and its context for the next block. False for a magnitude
+// that overflows (libjpeg's JWRN_ARITH_BAD_CODE).
+bool Decoder::arith_dc(int i, int tbl, int* diff) {
+  uint8_t* st = dc_stats_[tbl] + dc_context_[i];
+  *diff = 0;
+  if (arith_bit(st) == 0) {
+    dc_context_[i] = 0;
+    return true;
+  }
+  const int sign = arith_bit(st + 1);
+  st += 2 + sign;
+  int m = arith_bit(st);
+  if (m) {
+    st = dc_stats_[tbl] + 20;  // X1
+    while (arith_bit(st)) {
+      if ((m <<= 1) == 0x8000) return false;
+      st++;
+    }
+  }
+  if (m < ((1 << dc_L_[tbl]) >> 1))  // F.1.4.4.1.2: the next context
+    dc_context_[i] = 0;
+  else if (m > ((1 << dc_U_[tbl]) >> 1))
+    dc_context_[i] = 12 + sign * 4;
+  else
+    dc_context_[i] = 4 + sign * 4;
+  int v = m;
+  st += 14;  // M bins
+  while (m >>= 1)
+    if (arith_bit(st)) v |= m;
+  v += 1;
+  *diff = sign ? -v : v;
+  return true;
+}
+
+// Figure F.20 with F.21-F.24: AC coefficients ss..se of a block, first
+// (or only) pass, scaled by 2^al. False past se or on a magnitude overflow.
+bool Decoder::arith_ac(int tbl, int16_t* blk, int ss, int se, int al) {
+  uint8_t* const bins = ac_stats_[tbl];
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = bins + 3 * (k - 1);
+    if (arith_bit(st)) break;  // EOB
+    while (arith_bit(st + 1) == 0) {
+      st += 3;
+      if (++k > se) return false;
+    }
+    const int sign = arith_bit(&fixed_bin_);
+    st += 2;
+    int m = arith_bit(st);
+    if (m && arith_bit(st)) {
+      m <<= 1;
+      st = bins + (k <= ac_K_[tbl] ? 189 : 217);  // X2: low or high band
+      while (arith_bit(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st++;
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_bit(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    blk[kNatural[k]] = (int16_t)(uint32_t)((uint32_t)v << al);
+  }
+  return true;
+}
+
+// G.1.3.3: the AC refinement pass. Past EOBx, the last coefficient an
+// earlier pass made nonzero, an EOB decision precedes each coefficient.
+bool Decoder::arith_ac_refine(int tbl, int16_t* blk, int ss, int se, int al) {
+  uint8_t* const bins = ac_stats_[tbl];
+  const int p1 = 1 << al, m1 = -p1;
+  int kex = se;
+  while (kex > 0 && !blk[kNatural[kex]]) kex--;
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = bins + 3 * (k - 1);
+    if (k > kex && arith_bit(st)) break;  // EOB
+    for (;;) {
+      int16_t* coef = blk + kNatural[k];
+      if (*coef) {  // nonzero before: a correction bit
+        if (arith_bit(st + 2)) *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (arith_bit(st + 1)) {  // newly nonzero: its sign
+        *coef = (int16_t)(arith_bit(&fixed_bin_) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) return false;
+    }
+  }
+  return true;
+}
+
+// One arithmetic-coded scan. Unlike the Huffman decoder, every MCU is
+// decoded (a marker only feeds zeros), so every iMCU row counts as good;
+// after a bad code (CT = -1) the rest of the restart interval is left as it
+// stands, except in a DC refinement scan, which has no bad codes.
+void Decoder::decode_scan_arith(Component** sc, int n, int ss, int se, int ah, int al) {
+  const bool dc_first = !progressive_ || (ss == 0 && ah == 0);
+  const bool ac = !progressive_ || ss != 0;
+  arith_reset(sc, n, dc_first, ac);
+  restarts_to_go_ = restart_interval_;
+  int mcus_x, mcus_y;
+  mcu_grid(sc, n, &mcus_x, &mcus_y);
+  int16_t scratch[64];
+  for (int my = 0; my < mcus_y; my++) {
+    for (int mx = 0; mx < mcus_x; mx++) {
+      last_good_row_ = n == 1 ? my / sc[0]->v : my;
+      if (restart_interval_) {
+        if (restarts_to_go_ == 0) {
+          read_restart();
+          arith_reset(sc, n, dc_first, ac);
+          restarts_to_go_ = restart_interval_;
+        }
+        restarts_to_go_--;
+      }
+      if (progressive_ && ss == 0 && ah != 0) {  // DC refinement: one bit a block
+        for (int i = 0; i < n; i++) {
+          Component* c = sc[i];
+          const int bh = n == 1 ? 1 : c->v, bwid = n == 1 ? 1 : c->h;
+          for (int yy = 0; yy < bh; yy++)
+            for (int xx = 0; xx < bwid; xx++) {
+              int16_t* blk = mcu_block(c, n, my, mx, yy, xx, scratch);
+              if (arith_bit(&fixed_bin_)) blk[0] = (int16_t)(blk[0] | (1 << al));
+            }
+        }
+        continue;
+      }
+      bool ok = ct_ != -1;
+      for (int i = 0; i < n && ok; i++) {
+        Component* c = sc[i];
+        const int bh = n == 1 ? 1 : c->v, bwid = n == 1 ? 1 : c->h;
+        for (int yy = 0; yy < bh && ok; yy++) {
+          for (int xx = 0; xx < bwid && ok; xx++) {
+            int16_t* blk = mcu_block(c, n, my, mx, yy, xx, scratch);
+            if (dc_first) {
+              int diff;
+              ok = arith_dc(i, c->dc_tbl, &diff);
+              if (!ok) break;
+              c->last_dc = (c->last_dc + diff) & 0xFFFF;
+              blk[0] = (int16_t)(uint32_t)((uint32_t)c->last_dc << al);
+              if (progressive_) continue;
+              ok = arith_ac(c->ac_tbl, blk, 1, 63, 0);
+            } else if (ah == 0) {
+              ok = arith_ac(c->ac_tbl, blk, ss, se, al);
+            } else {
+              ok = arith_ac_refine(c->ac_tbl, blk, ss, se, al);
+            }
+          }
+        }
+      }
+      if (!ok) ct_ = -1;
+    }
+  }
 }
 
 // libjpeg-turbo's smoothing_ok: every component latched, with nonzero
@@ -1031,7 +1363,7 @@ void Decoder::run(std::vector<uint8_t>* gray, int* w, int* h) {
   for (;;) {
     int m = marker_ ? marker_ : next_marker();
     marker_ = 0;
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
       sof(m);
     } else if (m == 0xC4) {
       dht();
@@ -1053,7 +1385,7 @@ void Decoder::run(std::vector<uint8_t>* gray, int* w, int* h) {
     } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
       skip_segment();  // other APPn, COM, DNL
     } else {
-      fail();  // other SOFn, a second SOI, reserved markers
+      fail();  // other SOFn (lossless, hierarchical), a second SOI, reserved markers
     }
   }
   output(gray, w, h);
@@ -1075,3 +1407,16 @@ int decode_jpeg(const uint8_t* data, size_t size, std::vector<uint8_t>* gray, in
 }
 
 }  // namespace fmimg
+
+// The arithmetic decoder's probability table, {Qe, NMPS, NLPS, SWITCH} a
+// state, for a comparison with libjpeg's jpeg_aritab; returns the count.
+extern "C" int fm_jpeg_arith_states(uint16_t* qe, uint8_t* nmps, uint8_t* nlps, uint8_t* sw) {
+  const int n = (int)(sizeof fmimg::kArithStates / sizeof fmimg::kArithStates[0]);
+  for (int i = 0; i < n; i++) {
+    qe[i] = fmimg::kArithStates[i].qe;
+    nmps[i] = fmimg::kArithStates[i].nmps;
+    nlps[i] = fmimg::kArithStates[i].nlps;
+    sw[i] = fmimg::kArithStates[i].sw;
+  }
+  return n;
+}

@@ -12,7 +12,8 @@ Axes:
 A JAX ``NamedSharding`` places an array's rows on the devices; here each
 rank holds the whole tensor or its slice, so a sharding is the rank's row
 slice along one axis (``RowSharding.shard``) and the all-gather that
-undoes it (``RowSharding.gather``).
+undoes it (``RowSharding.gather``), or with no axis (``replicated``) the
+whole tensor on every rank.
 """
 
 from __future__ import annotations
@@ -65,14 +66,17 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 
 class RowSharding(NamedTuple):
-    """Rows split evenly along one mesh axis."""
+    """Rows split evenly along one mesh axis, or (``axis`` None) whole on
+    every rank."""
 
     mesh: object
-    axis: str
+    axis: str | None
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous row slice of ``x`` (whose row count must
         divide by the axis size)."""
+        if self.axis is None:
+            return x
         n = axis_size(self.mesh, self.axis)
         if x.shape[0] % n:
             raise ValueError(f"{x.shape[0]} rows do not divide by the {self.axis} axis "
@@ -83,6 +87,8 @@ class RowSharding(NamedTuple):
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole tensor back from every rank's slice."""
+        if self.axis is None:
+            return x
         return all_gather_rows(x, self.mesh.get_group(self.axis))
 
 
@@ -94,4 +100,9 @@ def bank_sharding(mesh) -> RowSharding:
 def batch_sharding(mesh) -> RowSharding:
     """Leading batch axis split over ``data`` (independent pairs)."""
     return RowSharding(mesh, "data")
+
+
+def replicated(mesh) -> RowSharding:
+    """Every rank holds the whole tensor (JAX's ``P()``)."""
+    return RowSharding(mesh, None)
 

@@ -49,13 +49,18 @@ def align_umeyama(X: torch.Tensor, Y: torch.Tensor, mask=None, with_scale: bool 
     return s, R, t
 
 
-def ate_rmse(est_centers, gt_centers) -> torch.Tensor:
-    """RMSE of (N, 3) camera centres after sim(3) alignment."""
+def ate_rmse(est_centers, gt_centers, mask=None) -> torch.Tensor:
+    """RMSE of (N, 3) camera centres after sim(3) alignment. ``mask`` (N,)
+    restricts the alignment and the mean to its True rows."""
     est = torch.as_tensor(est_centers, dtype=torch.float32)
     gt = torch.as_tensor(gt_centers, dtype=torch.float32, device=est.device)
-    s, R, t = align_umeyama(est, gt)
+    s, R, t = align_umeyama(est, gt, mask)
     aligned = s * est @ R.T + t
-    return torch.sqrt(((aligned - gt) ** 2).sum(-1).mean())
+    err2 = ((aligned - gt) ** 2).sum(-1)
+    if mask is None:
+        return torch.sqrt(err2.mean())
+    w = torch.as_tensor(mask, device=est.device).to(torch.float32)
+    return torch.sqrt((err2 * w).sum() / torch.clamp(w.sum(), min=1e-9))
 
 
 def rpe_trans(est_centers, gt_centers, delta: int = 1):

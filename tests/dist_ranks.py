@@ -127,7 +127,7 @@ def dist_cases(rank, world, inputs):
     at 4 ranks, on a (2, 2) mesh."""
     from fastmatch_tpu_torch.dist.bootstrap import broadcast_config
     from fastmatch_tpu_torch.dist.dist_ba import ba_solve_sharded
-    from fastmatch_tpu_torch.dist.mesh import make_mesh
+    from fastmatch_tpu_torch.dist.mesh import make_mesh, replicated
     from fastmatch_tpu_torch.dist.retrieve import retrieve_sharded
     from fastmatch_tpu_torch.dist.sharded_match import match_batch_dp, match_pair_sharded
     from fastmatch_tpu_torch.interop import ba_problem_from_numpy
@@ -149,6 +149,10 @@ def dist_cases(rank, world, inputs):
                 ba_problem_from_numpy(*inputs["ba"], device="cpu"), mesh, **inputs["ba_kw"]))
         if mesh["data"].size() > 1:
             out[f"dp_{name}"] = _np(match_batch_dp(*(_desc(*x) for x in inputs["dp"]), mesh))
+    x = torch.from_numpy(inputs["replicated"])
+    for name, mesh in meshes.items():
+        rep = replicated(mesh)
+        out[f"replicated_{name}"] = (rep.shard(x).numpy(), rep.gather(rep.shard(x)).numpy())
     mesh = meshes[f"1x{world}"]
     out["adversarial"] = _np(match_pair_sharded(*(_desc(*x) for x in inputs["adversarial"]),
                                                 mesh))

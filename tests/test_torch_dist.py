@@ -15,7 +15,9 @@ ranks and whose ``data`` groups split a batch in two, and a (4, 1) mesh:
 - ``retrieve_sharded`` equals the unsharded ``vlad.retrieve`` of both
   packages bit for bit on scores whose sums are exact;
 - ``broadcast_config`` carries rank 0's (or the marked rank's) config to
-  every rank; ``make_mesh`` rejects a shape that is not the world size.
+  every rank; ``make_mesh`` rejects a shape that is not the world size;
+- ``replicated`` leaves the whole tensor on every rank of each mesh, as
+  JAX's ``replicated`` puts it on every device of a (2, 4) mesh.
 
 In this process: the ring step over slabs (``ring_step``, what
 ``chip_smoke.py``'s ``dist_paths`` runs on one card), ``OverlapScheduler``
@@ -84,6 +86,7 @@ def _inputs():
     db_mask[5::9] = False
     retr = (_exact_vlad(rng, 6), _exact_vlad(rng, 64), db_mask)
     return dict(ring=ring, adversarial=adv, dp=dp, retrieve=retr, topk=TOPK,
+                replicated=rng.standard_normal((8, 5)).astype(np.float32),
                 ba=problem_arrays(seed=4, n_frames=6, n_points=100, noise_px=0.0, perturb=0.04),
                 ba_kw=BA_KW,
                 ba_pad=problem_arrays(seed=5, n_frames=4, n_points=40, cap_obs=250))
@@ -252,6 +255,22 @@ def test_bootstrap_nccl_rank_per_gpu(monkeypatch):
     monkeypatch.undo()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bootstrap.initialize_distributed()
+
+
+def test_replicated_equals_jax(ranks, inputs):
+    import jax
+
+    from fastmatch_tpu.dist import mesh as jmesh
+
+    x = inputs["replicated"]
+    arr = jax.device_put(jnp.asarray(x), jmesh.replicated(jmesh.make_mesh(2, 4)))
+    assert len(arr.addressable_shards) == 8
+    for shard in arr.addressable_shards:
+        np.testing.assert_array_equal(np.asarray(shard.data), x)
+    for name in ("1x4", "2x2", "4x1"):
+        for r in ranks:
+            for got in r[f"replicated_{name}"]:
+                np.testing.assert_array_equal(got, x)
 
 
 def test_make_mesh_rejects_other_sizes(ranks):

@@ -6,12 +6,17 @@
 float32 array bit for bit, or fails with the same return code. The one
 chosen difference is Adam7: libpng, read row by row as the library reads
 it, returns the passes' rows rather than the image, and the port refuses
-the file (code 2). Also the arrays against ``references.npz`` (what
-``chip_smoke.py`` holds the card's machine to), the bilinear resize, the
-threaded frame loader over a mixed list, and the build's independence
-from image and compression headers.
+the file (code 2). Arithmetic-coded files (SOF9, SOF10) are held like the
+others. Also the arrays against ``references.npz`` (what ``chip_smoke.py``
+holds the card's machine to), the arithmetic transcodes of the smoke frames
+against their Huffman originals, the arithmetic decoder's probability table
+against libjpeg's ``jpeg_aritab``, the bilinear resize, the threaded frame
+loader over a mixed list, and the build's independence from image and
+compression headers.
 """
 
+import ctypes
+import ctypes.util
 import hashlib
 import os
 import re
@@ -80,6 +85,32 @@ def test_decode_equals_references(refs):
         else:
             assert np.array_equal(got, refs[key].astype(np.float32) * INV255), name
     assert seen == set(FILES)
+
+
+@pytest.mark.parametrize("arith, huffman", [("smoke_000_arith.jpg", "smoke_000.jpg"),
+                                             ("smoke_001_arith.jpg", "smoke_001.jpg"),
+                                             ("smoke_000_arith_prog.jpg", "smoke_000.jpg")])
+def test_arith_transcode_equals_huffman(arith, huffman):
+    # Lossless transcodes: the same DCT coefficients, so the same image.
+    got = imageio.load_gray(os.path.join(DATA, arith))
+    want = imageio.load_gray(os.path.join(DATA, huffman))
+    assert got.shape == (480, 640) and np.array_equal(got, want)
+
+
+def test_arith_table_equals_libjpeg():
+    """Every state of T.81 Table D.2 (and libjpeg's fixed state 113), not
+    only those the corpus reaches: libjpeg-turbo's ``jpeg_aritab`` packs a
+    state as Qe << 16 | NMPS << 8 | SWITCH << 7 | NLPS in a long."""
+    n = 114
+    qe, nmps, nlps, sw = (ctypes.c_uint16 * n)(), *((ctypes.c_uint8 * n)() for _ in range(3))
+    port = ctypes.CDLL(imageio.build())
+    assert port.fm_jpeg_arith_states(qe, nmps, nlps, sw) == n
+    libjpeg = ctypes.CDLL(ctypes.util.find_library("jpeg") or "libjpeg.so.62")
+    ref = np.array((ctypes.c_long * n).in_dll(libjpeg, "jpeg_aritab"), np.int64)
+    np.testing.assert_array_equal(np.array(qe), ref >> 16)
+    np.testing.assert_array_equal(np.array(nmps), (ref >> 8) & 0xFF)
+    np.testing.assert_array_equal(np.array(sw), (ref >> 7) & 1)
+    np.testing.assert_array_equal(np.array(nlps), ref & 0x7F)
 
 
 @pytest.mark.parametrize("size", [(40, 30), (101, 77)])

@@ -18,7 +18,7 @@ from fastmatch_tpu.pipeline.config import BAConfig, MapConfig, PipelineConfig
 from fastmatch_tpu.pipeline.slam import SlamConfig
 from fastmatch_tpu.pipeline.slam_scan import slam_chunked as jslam_chunked
 from test_slam import CircleScene, features_of
-from test_torch_slam_device import assert_ate_as_jax, assert_map_as_jax, centres_gt, wreck
+from slam_fixtures import assert_ate_as_jax, assert_map_as_jax, centres_gt, figures, wreck
 
 from fastmatch_tpu_torch import interop
 from fastmatch_tpu_torch.core.camera import Pinhole
@@ -35,18 +35,19 @@ def runs():
     cfg = PipelineConfig(ba=BAConfig(interval=5, max_iters=8, pcg_iters=30),
                          map=MapConfig(max_frames=32, max_points=4096, max_obs=32768))
     scfg = SlamConfig(window=6, loop_gap=10 ** 6, loop_min_votes=10 ** 9)
-    ref = jslam_chunked(feats, JPinhole.from_K(scene.K), cfg, scfg, chunk=5)
+    gt = centres_gt(scene)
+    ref = figures(jslam_chunked(feats, JPinhole.from_K(scene.K), cfg, scfg, chunk=5), gt)
     out = slam_chunked(feats, Pinhole.from_K(scene.K), interop.config_from(cfg), scfg, chunk=5,
                        device="cpu")
-    return dict(out=out, ref=ref, gt=centres_gt(scene))
+    return dict(out=out, ref=ref, gt=gt)
 
 
 def test_chunked_dropout_across_boundary(runs):
     out, ref = runs["out"], runs["ref"]
     assert 10 not in out.frame_seq and 11 not in out.frame_seq
-    assert out.frame_seq == ref.frame_seq
+    assert out.frame_seq == ref["frame_seq"]
     assert out.frame_seq[-1] == 19
-    assert not out.loop_edges and out.pgo_runs == ref.pgo_runs == 0
+    assert not out.loop_edges and out.pgo_runs == ref["pgo_runs"] == 0
 
 
 def test_chunked_dropout_map_as_jax(runs):

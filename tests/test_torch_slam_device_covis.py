@@ -28,7 +28,7 @@ from fastmatch_tpu.pipeline import tracker as jtr
 from fastmatch_tpu.pipeline.config import BAConfig, MapConfig, PipelineConfig
 from fastmatch_tpu.pipeline.slam import SlamConfig
 from test_slam import CircleScene, features_of
-from test_torch_slam_device import _ate, centres_gt
+from slam_fixtures import _ate, centres_gt
 
 from fastmatch_tpu_torch import interop
 from fastmatch_tpu_torch.core.camera import Pinhole

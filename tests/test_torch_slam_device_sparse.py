@@ -20,8 +20,8 @@ from fastmatch_tpu.pipeline.config import BAConfig, MapConfig, PipelineConfig
 from fastmatch_tpu.pipeline.slam import SlamConfig
 from fastmatch_tpu.pipeline.slam_device import slam_device as jslam_device
 from test_slam import CircleScene, features_of
-from test_torch_slam_device import (assert_ate_as_jax, assert_loops_as_jax, assert_map_as_jax,
-                                    centres_gt, keyframes)
+from slam_fixtures import (assert_ate_as_jax, assert_loops_as_jax, assert_map_as_jax,
+                           centres_gt, figures, keyframes)
 
 from fastmatch_tpu_torch import interop
 from fastmatch_tpu_torch.core.camera import Pinhole
@@ -39,16 +39,17 @@ def runs():
                          map=MapConfig(max_frames=32, max_points=4096, max_obs=32768))
     scfg = dataclasses.replace(SlamConfig(window=6, loop_gap=10, loop_min_votes=20),
                                kf_tracked_thresh=60, kf_max_gap=4)
-    ref = jslam_device(feats, JPinhole.from_K(scene.K), cfg, scfg)
+    gt = centres_gt(scene)
+    ref = figures(jslam_device(feats, JPinhole.from_K(scene.K), cfg, scfg), gt)
     out = tsd.slam_device(feats, Pinhole.from_K(scene.K), interop.config_from(cfg), scfg,
                           device="cpu")
-    return dict(out=out, ref=ref, gt=centres_gt(scene))
+    return dict(out=out, ref=ref, gt=gt)
 
 
 def test_sparse_keyframe_selection(runs):
     out, ref = runs["out"], runs["ref"]
     assert out.rec.n_frames == 26, "sparse keyframing lost tracking"
-    assert out.frame_seq == ref.frame_seq == list(range(26))
+    assert out.frame_seq == ref["frame_seq"] == list(range(26))
     assert keyframes(out.rec) <= 0.55 * 26
 
 

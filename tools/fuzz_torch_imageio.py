@@ -4,12 +4,11 @@ library, libjpeg + libpng).
 
     python tools/fuzz_torch_imageio.py [--seed 0] [--n 4000] [--sanitize]
 
-Each case takes a JPEG or PNG of tests/data/torch_images/ and applies 1-3
-edits (a bit flip, a byte overwritten, the file cut, a byte inserted or
-deleted), then decodes it with both libraries: the arrays must be equal
-bit for bit, or the return codes equal. A file that became
-arithmetic-coded (SOF9-SOF11), which libjpeg-turbo decodes and the port
-refuses (ROADMAP Queue 3), is counted apart. ``--sanitize`` builds the
+Each case takes a JPEG (Huffman- or arithmetic-coded) or PNG of
+tests/data/torch_images/ and applies 1-3 edits (a bit flip, a byte
+overwritten, the file cut, a byte inserted or deleted), then decodes it with
+both libraries: the arrays must be equal bit for bit, or the return codes
+equal. ``--sanitize`` builds the
 port's sources with AddressSanitizer and UndefinedBehaviorSanitizer into a
 temporary directory and re-runs the script under them. Mismatching cases
 are written to ``--keep DIR`` when given. Prints one JSON line.
@@ -47,13 +46,6 @@ def decoder(lib):
             return rc
         return np.ctypeslib.as_array(data, shape=(h.value, w.value)).copy()
     return load
-
-
-def arithmetic(data):
-    """Whether a SOF9-SOF11 marker precedes the first SOS."""
-    i = data.find(b"\xff\xda")
-    head = data[:i if i >= 0 else len(data)]
-    return any(b"\xff" + bytes([m]) in head for m in (0xC9, 0xCA, 0xCB))
 
 
 def mutate(rnd, data):
@@ -109,7 +101,7 @@ def main(argv=None):
     files = sorted(f for f in glob.glob(os.path.join(DATA, "*"))
                    if f.endswith((".jpg", ".png")) and os.path.basename(f) not in ADAM7)
     rnd = random.Random(args.seed)
-    counts = dict(cases=0, equal=0, arithmetic=0, mismatch=0)
+    counts = dict(cases=0, equal=0, mismatch=0)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "case.bin")
         for case in range(args.n):
@@ -125,8 +117,6 @@ def main(argv=None):
             counts["cases"] += 1
             if same:
                 counts["equal"] += 1
-            elif arithmetic(data):
-                counts["arithmetic"] += 1
             else:
                 counts["mismatch"] += 1
                 if args.keep:

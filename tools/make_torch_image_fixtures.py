@@ -14,7 +14,11 @@ are frames 0 and 1 of the smoke scene (``chip_smoke.SMOKE_SCENE``) at
 types, stored or fixed-Huffman zlib streams, split IDATs, Adam7, gamma
 chunks, bad CRC or Adler-32) come from the hand writer below, JPEG ones
 (standard tables, Adobe RGB with subsampling, truncation) from byte edits
-of encoder output.
+of encoder output. Arithmetic-coded JPEGs (``jpeg_arith_*``: SOF9,
+``jpeg_arith_prog_*``: SOF10, and ``smoke_*_arith*.jpg``) are the Huffman
+files transcoded losslessly by ``tools/jpeg_transcode.c``, which this script
+compiles with ``gcc ... -ljpeg`` (the system's libjpeg-turbo), some of them
+edited afterwards.
 
 references.npz holds, for a file ``name``: ``name`` the decode's 8-bit
 codes (uint8; the decode is ``codes * (1.0f / 255.0f)`` in float32,
@@ -174,6 +178,129 @@ def jpeg_files():
     files["jpeg_truncated_progressive_gray.jpg"] = cut(files["jpeg_progressive_gray.jpg"], 0.3)
     files["jpeg_truncated_header.jpg"] = full[:300]
     files["jpeg_no_eoi.jpg"] = full[:-2]
+    return files
+
+
+def scan_data_start(data):
+    """Offset of the first scan's entropy-coded data."""
+    return segments(data)[-1][2]
+
+
+def marker_positions(data, wanted):
+    """Offsets of every marker in ``wanted`` (segments and entropy-coded
+    data walked alike, FF 00 skipped)."""
+    out, i = [], 2
+    while i + 1 < len(data):
+        if data[i] != 0xFF or data[i + 1] in (0x00, 0xFF):
+            i += 1
+            continue
+        m = data[i + 1]
+        if m in wanted:
+            out.append(i)
+        if 0xD0 <= m <= 0xD9 or m == 0x01:
+            i += 2
+        else:
+            i += 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+    return out
+
+
+def strip_everywhere(data, marker):
+    """``data`` without any segment of ``marker`` (DAC between scans too)."""
+    for i in reversed(marker_positions(data, {marker})):
+        length = struct.unpack(">H", data[i + 2:i + 4])[0]
+        data = data[:i] + data[i + 2 + length:]
+    return data
+
+
+def transcoder():
+    """tools/jpeg_transcode.c built with the system's libjpeg: a function
+    (jpeg bytes, *options) -> jpeg bytes."""
+    import subprocess
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    exe = os.path.join(tmp, "jpeg_transcode")
+    subprocess.run(["gcc", "-O2", "-o", exe, os.path.join(ROOT, "tools", "jpeg_transcode.c"),
+                    "-ljpeg"], check=True)
+
+    def run(data, *options):
+        src, dst = os.path.join(tmp, "in.jpg"), os.path.join(tmp, "out.jpg")
+        with open(src, "wb") as fh:
+            fh.write(data)
+        subprocess.run([exe, src, dst, *map(str, options)], check=True)
+        with open(dst, "rb") as fh:
+            return fh.read()
+    return run
+
+
+def arith_files(huffman, smoke):
+    """Arithmetic-coded files: the Huffman corpus ``huffman`` and the smoke
+    frames ``smoke`` transcoded (same DCT coefficients), and edits of them."""
+    tc = transcoder()
+    files = {}
+    for name in ("jpeg_gray", "jpeg_444_q75", "jpeg_422_q75", "jpeg_420_q75", "jpeg_411",
+                 "jpeg_440", "jpeg_adobe_rgb", "jpeg_adobe_rgb_420", "jpeg_odd_17x9_420",
+                 "jpeg_odd_1x33_420", "jpeg_q1_tables", "jpeg_sof1_dqt16"):
+        files[name.replace("jpeg_", "jpeg_arith_") + ".jpg"] = tc(huffman[name + ".jpg"])
+    base = huffman["jpeg_420_q95.jpg"]
+    files["jpeg_arith_dac.jpg"] = tc(base, "dac", 2, 6, 12)
+    files["jpeg_arith_dac_zero.jpg"] = tc(base, "dac", 0, 0, 1)
+    files["jpeg_arith_restart_rows.jpg"] = tc(huffman["jpeg_restart_rows.jpg"], "restart-rows", 1)
+    files["jpeg_arith_restart_blocks.jpg"] = tc(huffman["jpeg_restart_blocks.jpg"], "restart", 2)
+    files["jpeg_arith_separate_scans.jpg"] = tc(base, "separate", "restart", 4)
+    # Table slots above 3: in the DAC the encoder writes, and at the defaults.
+    files["jpeg_arith_slots_dac.jpg"] = tc(base, "slots", 5, 9, "dac", 1, 3, 20)
+    files["jpeg_arith_slots_default.jpg"] = strip_everywhere(tc(base, "slots", 7, 15),
+                                                             0xCC)
+    big = huffman["jpeg_progressive.jpg"]
+    files["jpeg_arith_prog.jpg"] = tc(big, "progressive")
+    files["jpeg_arith_prog_gray.jpg"] = tc(huffman["jpeg_gray.jpg"], "progressive")
+    files["jpeg_arith_prog_restart.jpg"] = tc(huffman["jpeg_420_q75.jpg"], "progressive",
+                                              "restart", 3)
+    files["jpeg_arith_prog_adobe_rgb.jpg"] = tc(huffman["jpeg_adobe_rgb.jpg"], "progressive")
+    files["jpeg_arith_prog_411.jpg"] = tc(huffman["jpeg_411.jpg"], "progressive")
+
+    def cut(data, scan, share=0.5):
+        """``data`` cut inside the entropy-coded data of scan ``scan``."""
+        sos = marker_positions(data, {0xDA})[scan]
+        start = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+        end = min(i for i in marker_positions(data, set(range(0x01, 0xFF)) - set(range(0xD0, 0xD8)))
+                  if i >= start)
+        return data[:start + int((end - start) * share)]
+
+    # Cut progressive files: libjpeg-turbo's smoothing estimates what is
+    # missing. libjpeg's script for YCbCr: DC first (scan 0), AC first (1-4),
+    # AC refinement of Y (5), DC refinement (6), AC refinements (7-9); for
+    # gray: DC, two AC bands, AC refinement (3), DC refinement, AC refinement.
+    prog = files["jpeg_arith_prog.jpg"]
+    files["jpeg_arith_prog_truncated_dc.jpg"] = cut(prog, 0)
+    files["jpeg_arith_prog_truncated_ac.jpg"] = cut(prog, 4)
+    files["jpeg_arith_prog_truncated_dc_refine.jpg"] = cut(prog, 6)
+    files["jpeg_arith_prog_truncated_gray.jpg"] = cut(files["jpeg_arith_prog_gray.jpg"], 3)
+    seq = files["jpeg_arith_420_q75.jpg"]
+    files["jpeg_arith_truncated.jpg"] = cut(seq, 0, 0.6)
+    flipped = bytearray(seq)
+    at = scan_data_start(seq) + 40
+    flipped[at] ^= 0x10 if flipped[at] != 0xEF else 0x01
+    files["jpeg_arith_byte_flipped.jpg"] = bytes(flipped)
+    # Restart markers out of order: the second and third swapped.
+    rst = bytearray(files["jpeg_arith_restart_blocks.jpg"])
+    r = marker_positions(bytes(rst), set(range(0xD0, 0xD8)))
+    rst[r[1] + 1], rst[r[2] + 1] = rst[r[2] + 1], rst[r[1] + 1]
+    files["jpeg_arith_restart_swapped.jpg"] = bytes(rst)
+    dac = bytearray(seq)
+    dac[marker_positions(seq, {0xCC})[0] + 4] = 0x20  # the first DAC index: 32
+    files["jpeg_arith_dac_index32.jpg"] = bytes(dac)
+    # Lossless and hierarchical processes, which libjpeg refuses: SOFn edited.
+    for name, data, marker in (("jpeg_sof3.jpg", huffman["jpeg_444_q75.jpg"], 0xC3),
+                               ("jpeg_sof5.jpg", huffman["jpeg_444_q75.jpg"], 0xC5),
+                               ("jpeg_arith_sof11.jpg", seq, 0xCB)):
+        d = bytearray(data)
+        d[marker_positions(data, {0xC0, 0xC9})[0] + 1] = marker
+        files[name] = bytes(d)
+    files["smoke_000_arith.jpg"] = tc(smoke["smoke_000.jpg"])
+    files["smoke_001_arith.jpg"] = tc(smoke["smoke_001.jpg"])
+    files["smoke_000_arith_prog.jpg"] = tc(smoke["smoke_000.jpg"], "progressive")
     return files
 
 
@@ -379,7 +506,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from fastmatch_tpu.utils import imageio as jax_imageio
 
-    files = {**jpeg_files(), **png_files(), **pnm_files(), **smoke_jpegs()}
+    huffman, smoke = jpeg_files(), smoke_jpegs()
+    files = {**huffman, **png_files(), **pnm_files(), **smoke, **arith_files(huffman, smoke)}
     os.makedirs(OUT, exist_ok=True)
     for name in os.listdir(OUT):
         os.remove(os.path.join(OUT, name))
